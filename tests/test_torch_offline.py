@@ -1,0 +1,122 @@
+"""The slice as a whole: tpu_slam_torch.models.offline.offline_slam against
+tpu_slam's on test_offline.py's corridor mission (128 beams), with the
+same scans and odometry fed to both."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from tpu_slam.models import offline as joff
+from tpu_slam.utils.evaluation import ate_rmse
+from tpu_slam_torch.convert import scan_from_numpy
+from tpu_slam_torch.models import offline as toff
+
+from test_offline import _corridor_mission
+
+
+def _port_scans(scans):
+    return scan_from_numpy(*(np.asarray(getattr(scans, f)) for f in (
+        "ranges", "valid", "angles", "stamp", "time_increment")))
+
+
+@pytest.fixture(scope="module")
+def missions():
+    cfg, scans, seq, odom = _corridor_mission()
+    ref = joff.offline_slam(scans, cfg, odom=odom)
+    out = toff.offline_slam(_port_scans(scans), cfg, odom=odom)
+    return cfg, scans, seq, odom, ref, out
+
+
+def test_chain_matches_reference(missions):
+    _cfg, _scans, _seq, _odom, ref, out = missions
+    np.testing.assert_allclose(out.chain_rels, ref.chain_rels, atol=1e-4)
+    np.testing.assert_allclose(out.chain_poses, ref.chain_poses, atol=1e-4)
+
+
+def test_same_loops_accepted(missions):
+    _cfg, _scans, _seq, _odom, ref, out = missions
+    assert ref.loops, "the case must close loops"
+    assert sorted((e.i, e.j) for e in out.loops) == sorted(
+        (e.i, e.j) for e in ref.loops)
+    assert out.candidates_tried == ref.candidates_tried
+
+
+def test_poses_and_ate_match_reference(missions):
+    _cfg, _scans, seq, _odom, ref, out = missions
+    T = len(seq.gt_poses)
+    assert out.poses.shape == (T, 3)
+    np.testing.assert_allclose(out.poses[:, :2], ref.poses[:, :2], atol=1e-3)
+    ate_ref = ate_rmse(ref.poses, seq.gt_poses)
+    ate_out = ate_rmse(out.poses, seq.gt_poses)
+    assert abs(ate_out - ate_ref) <= 5e-4
+    # and the slice does its job: test_offline.py's bounds
+    assert ate_out < 0.08
+    assert ate_out <= ate_rmse(out.chain_poses, seq.gt_poses) + 1e-6
+
+
+def test_stage_timer_records_every_stage(missions):
+    *_, out = missions
+    for stage in ("chain_match", "candidates", "loop_match", "pcm", "solve"):
+        assert out.timer.counts[stage] >= 1, stage
+    assert out.solver.num_nodes == out.poses.shape[0]
+
+
+def test_host_helpers_match_reference():
+    cfg, _scans, seq, _odom = _corridor_mission()
+    ocfg = cfg.offline
+    np.testing.assert_array_equal(toff._seed_lattice(ocfg),
+                                  joff._seed_lattice(ocfg))
+    assert [toff._bucket(n) for n in (1, 64, 65, 1000)] == [
+        joff._bucket(n) for n in (1, 64, 65, 1000)]
+    assert toff._loop_candidates(seq.gt_poses, ocfg, set()) == \
+        joff._loop_candidates(seq.gt_poses, ocfg, set())
+
+
+def test_pcm_and_thinning_match_reference():
+    rng = np.random.default_rng(5)
+    poses = np.cumsum(rng.normal(0, 0.2, (300, 3)), axis=0)
+    loops_t, loops_j = [], []
+    for k in range(40):
+        i = int(rng.integers(0, 150))
+        j = int(rng.integers(i + 40, 300))
+        mean = rng.normal(0, 0.5, 3)
+        cov = np.diag(rng.uniform(1e-4, 1e-2, 3))
+        args = dict(i=i, j=j, mean=mean, covariance=cov, error=0.01,
+                    inlier_frac=float(rng.uniform(0.6, 1.0)), round=0)
+        loops_t.append(toff.LoopEdge(**args))
+        loops_j.append(joff.LoopEdge(**args))
+    ocfg = dataclasses.replace(_corridor_mission()[0].offline,
+                               max_solver_loops=12, pcm_chi2=50.0)
+    np.testing.assert_array_equal(
+        toff.consistent_loop_set(loops_t, poses, 1e-4, ocfg),
+        joff.consistent_loop_set(loops_j, poses, 1e-4, ocfg))
+    thin = toff._thin_loops(loops_t, ocfg)
+    assert 0 < len(thin) <= 12
+    assert [(e.i, e.j) for e in thin] == sorted((e.i, e.j) for e in thin)
+
+
+def test_unported_stages_raise():
+    cfg, scans, _seq, odom = _corridor_mission()
+    port = _port_scans(scans)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        toff.offline_slam(port, cfg, odom=odom, mesh=object())
+    with pytest.raises(NotImplementedError, match="undistortion"):
+        toff.offline_slam(port, cfg, odom=odom,
+                          corrected_pts=np.zeros((1, 1, 2)))
+    # a drift-control route length engages skip edges / anchors
+    short = dataclasses.replace(
+        cfg, offline=dataclasses.replace(cfg.offline,
+                                         drift_control_min_route=1.0))
+    with pytest.raises(NotImplementedError, match="drift-control"):
+        toff.offline_slam(port, short, odom=odom)
+
+
+def test_needs_two_scans():
+    cfg, scans, _seq, _odom = _corridor_mission()
+    port = _port_scans(scans)
+    one = dataclasses.replace(port, **{
+        f: getattr(port, f)[:1] for f in ("ranges", "valid", "angles",
+                                          "stamp", "time_increment")})
+    with pytest.raises(ValueError):
+        toff.offline_slam(one, cfg)

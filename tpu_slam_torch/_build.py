@@ -1,0 +1,110 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled by ``nvcc`` for ``sm_90a`` into ``build/tpu_slam_torch/`` at the
+root of the checkout (git-ignored), under a name that carries a hash of the
+source and the flags, and loaded with ``ctypes``. A build or load failure
+raises; nothing falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "tpu_slam_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p (a bare Python int
+# would be passed as a 32-bit int and cut the pointer)
+SIGNATURES = {
+    "plicp_fused": (
+        "plicp_fused_launch",
+        # src, src_valid, tgt, tgt_valid, init, pose, stats, H,
+        # B, N, M, rounds, max_d2, eps_xy, eps_th, q_perc, q_adap,
+        # adap_mult, stream
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+         _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _VP],
+    ),
+    "cr_lm": (
+        "cr_lm_launch",
+        # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta, stream
+        [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _VP],
+    ),
+    "pcg_lm": (
+        "pcg_lm_launch",
+        # pT, ei, ej, meansT, W6, fm, row_ptr, inc, out, L, scratch, lam0,
+        # M, E, iters, cg_iters, cg_tol, sq_min_delta, stream
+        [_VP] * 9 + [_I, _VP, _F, _I, _I, _I, _I, _F, _F, _VP],
+    ),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of kernel ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point; raise on a CUDA error."""
+    fn = getattr(load(name), SIGNATURES[name][0])
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def build_all() -> list[Path]:
+    """Build every kernel of the package; returns the library paths."""
+    for name in SIGNATURES:
+        load(name)
+    return [library_path(name) for name in SIGNATURES]

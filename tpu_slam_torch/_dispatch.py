@@ -1,0 +1,36 @@
+"""The one dispatch rule of the port, and the kernels' launch counters.
+
+A tensor on ``cuda`` goes to the hand-written kernel; a tensor on ``cpu``
+goes to the kernel's plain PyTorch version; any other device raises. This
+replaces the JAX package's backend checks (``jax.default_backend() ==
+"tpu"`` in ``parallel/distributed_step._match_fn`` and
+``solver/pose_graph.PoseGraphSolver.compute_async``): the device of the
+data decides, and there is no silent fallback from the kernel.
+
+``LAUNCHES`` holds one plain integer per kernel. A wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that the main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {"plicp_fused": 0, "cr_lm": 0, "pcg_lm": 0}
+
+
+def route(t: torch.Tensor) -> str:
+    """``"cuda"`` (launch the kernel) or ``"cpu"`` (plain version)."""
+    kind = t.device.type
+    if kind in ("cuda", "cpu"):
+        return kind
+    raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

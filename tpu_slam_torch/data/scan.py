@@ -1,0 +1,80 @@
+"""Scan containers — port of ``tpu_slam/data/scan.py``.
+
+A fixed-shape batch of laser scans: invalid beams are masked, never
+dropped, so every scan of a batch has the same ``num_beams``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpu_slam.config import ScanConfig
+
+
+@dataclasses.dataclass
+class Scan:
+    """A batch of laser scans; the last axis is the beam axis of size N.
+
+    Attributes:
+      ranges: (..., N) measured ranges in meters; invalid beams hold any value.
+      valid: (..., N) bool — range_min < r < range_max and finite.
+      angles: (..., N) beam angles in the laser frame.
+      stamp: (...,) scan start time in seconds.
+      time_increment: (...,) seconds between consecutive beams.
+    """
+
+    ranges: torch.Tensor
+    valid: torch.Tensor
+    angles: torch.Tensor
+    stamp: torch.Tensor
+    time_increment: torch.Tensor
+
+    @property
+    def num_beams(self) -> int:
+        return self.ranges.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.ranges.device
+
+    def points(self) -> torch.Tensor:
+        """Polar→Cartesian endpoints in the laser frame, (..., N, 2).
+        Invalid beams produce garbage values that must be gated with
+        ``self.valid``."""
+        x = self.ranges * torch.cos(self.angles)
+        y = self.ranges * torch.sin(self.angles)
+        return torch.stack([x, y], dim=-1)
+
+
+def make_scan(
+    ranges,
+    cfg: ScanConfig,
+    stamp=0.0,
+    dtype=torch.float32,
+    device=None,
+) -> Scan:
+    """Build a Scan (or batch) from raw range arrays + sensor config."""
+    ranges = torch.as_tensor(ranges, dtype=dtype, device=device)
+    batch_shape = ranges.shape[:-1]
+    n = ranges.shape[-1]
+    angles = cfg.angle_min + cfg.angle_increment * torch.arange(
+        n, dtype=dtype, device=ranges.device
+    )
+    angles = angles.expand(ranges.shape).contiguous()
+    valid = (
+        torch.isfinite(ranges)
+        & (ranges > cfg.range_min)
+        & (ranges < cfg.range_max)
+    )
+    stamp = torch.as_tensor(stamp, dtype=dtype, device=ranges.device)
+    stamp = stamp.expand(batch_shape).contiguous()
+    tinc = torch.full(
+        batch_shape, cfg.scan_period / max(n, 1), dtype=dtype,
+        device=ranges.device,
+    )
+    return Scan(
+        ranges=ranges, valid=valid, angles=angles, stamp=stamp,
+        time_increment=tinc,
+    )

@@ -1,0 +1,129 @@
+"""What the plain solvers share: the edge residuals, Jacobians, cost and
+block normal equations of the pose graph, the doSPA Levenberg-Marquardt
+schedule (spa2d.cpp:425-609), and the packed result they return.
+
+Residual model (SPA2d's Con2dP2):
+    r_xy = R(θi)ᵀ (t_j − t_i) − ẑ_xy
+    r_θ  = normalize(θ_j − θ_i − ẑ_θ)
+weighted by the information matrix Ω = covariance⁻¹.
+
+λ halves on an accepted step and is multiplied by ``laminc`` on a rejected
+one (``laminc`` then doubles); a step is accepted when it lowers the cost;
+the loop stops once ‖δ‖² < ``sq_min_delta`` or after ``iters`` steps. λ is
+kept in float32, as the kernels keep it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_TWO_PI = 6.283185307179586
+_PI = 3.141592653589793
+
+
+def norm_angle(th: torch.Tensor) -> torch.Tensor:
+    """Branchless wrap to [-π, π), as the kernels do."""
+    return th - _TWO_PI * torch.floor((th + _PI) / _TWO_PI)
+
+
+def omega(w6: torch.Tensor) -> torch.Tensor:
+    """(6, L) information upper-triangle rows → (L, 3, 3) matrices."""
+    rows = [[0, 1, 2], [1, 3, 4], [2, 4, 5]]
+    return torch.stack(
+        [torch.stack([w6[q] for q in row], -1) for row in rows], -2)
+
+
+def _rot_t(th):
+    """R(θ)ᵀ as (..., 2, 2)."""
+    c, s = torch.cos(th), torch.sin(th)
+    return torch.stack([torch.stack([c, s], -1), torch.stack([-s, c], -1)], -2)
+
+
+def edge_residuals(poses, ei, ej, means):
+    """(E, 3) residuals of the relative-pose constraints."""
+    pi, pj = poses[ei], poses[ej]
+    rxy = (_rot_t(pi[:, 2]) @ (pj[:, :2] - pi[:, :2])[..., None])[..., 0]
+    rth = pj[:, 2] - pi[:, 2] - means[:, 2]
+    rth = torch.atan2(torch.sin(rth), torch.cos(rth))
+    return torch.cat([rxy - means[:, :2], rth[:, None]], dim=-1)
+
+
+def edge_jacobians(poses, ei, ej):
+    """Analytic Jacobians (E, 3, 3) × 2 wrt nodes i and j."""
+    pi, pj = poses[ei], poses[ej]
+    c, s = torch.cos(pi[:, 2]), torch.sin(pi[:, 2])
+    dx, dy = pj[:, 0] - pi[:, 0], pj[:, 1] - pi[:, 1]
+    drx = -s * dx + c * dy
+    dry = -c * dx - s * dy
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    Ji = torch.stack([torch.stack([-c, -s, drx], -1),
+                      torch.stack([s, -c, dry], -1),
+                      torch.stack([z, z, -o], -1)], -2)
+    Jj = torch.stack([torch.stack([c, s, z], -1),
+                      torch.stack([-s, c, z], -1),
+                      torch.stack([z, z, o], -1)], -2)
+    return Ji, Jj
+
+
+def graph_cost(poses, ei, ej, means, infos):
+    """Σ rᵀ Ω r over the edges."""
+    r = edge_residuals(poses, ei, ej, means)
+    return torch.sum(r[:, None, :] @ infos @ r[:, :, None])
+
+
+def normal_equations(poses, ei, ej, means, infos, n_nodes):
+    """Block normal equations: diagonal blocks Hd (M, 3, 3), per-edge
+    off-diagonal blocks Hij (E, 3, 3) and gradient b = Jᵀ Ω r (M, 3)."""
+    r = edge_residuals(poses, ei, ej, means)
+    Ji, Jj = edge_jacobians(poses, ei, ej)
+    JiW = Ji.mT @ infos
+    JjW = Jj.mT @ infos
+    Hd = torch.zeros((n_nodes, 3, 3), dtype=poses.dtype, device=poses.device)
+    Hd.index_add_(0, ei, JiW @ Ji)
+    Hd.index_add_(0, ej, JjW @ Jj)
+    b = torch.zeros((n_nodes, 3), dtype=poses.dtype, device=poses.device)
+    b.index_add_(0, ei, (JiW @ r[..., None])[..., 0])
+    b.index_add_(0, ej, (JjW @ r[..., None])[..., 0])
+    return Hd, JiW @ Jj, b
+
+
+def lm_loop(p0, cost_of, step_of, wrap, lam0, iters, sq_min_delta):
+    """Run the schedule from poses ``p0``. ``cost_of(p)`` is the graph
+    cost, ``step_of(p, lam)`` the damped Gauss-Newton step (lam a float32
+    scalar) and ``wrap(cand)`` the candidate with its headings wrapped.
+    Returns (poses, cost0, cost, good, iterations)."""
+    p = p0
+    cost0 = cost = cost_of(p0)
+    lam, laminc = np.float32(lam0), np.float32(2.0)
+    good = it = 0
+    while it < iters:
+        delta = step_of(p, lam)
+        converged = bool(torch.sum(delta * delta) < sq_min_delta)
+        cand = wrap(p + delta)
+        new_cost = cost_of(cand)
+        it += 1
+        if bool(new_cost < cost) and not converged:
+            p, cost = cand, new_cost
+            lam = lam * np.float32(0.5)
+            good += 1
+        else:
+            lam = lam * laminc
+            laminc = laminc * np.float32(2.0)
+        if converged:
+            break
+    return p, cost0, cost, good, it
+
+
+def pack(posesT, cost0, cost, good, iters) -> torch.Tensor:
+    """The packed (8, max(L, 4)) result: poses (3, L) in rows 0..2,
+    (cost0, cost, good, iters) in row 3, lanes 0..3."""
+    L = posesT.shape[1]
+    out = torch.zeros((8, max(L, 4)), dtype=torch.float32,
+                      device=posesT.device)
+    out[0:3, :L] = posesT
+    out[3, 0] = cost0
+    out[3, 1] = cost
+    out[3, 2] = good
+    out[3, 3] = iters
+    return out
