@@ -13,6 +13,8 @@ from tpu_slam.data.scan import make_scan as jax_make_scan
 from tpu_slam_torch import geometry as tgeo
 from tpu_slam_torch.data.scan import make_scan
 
+from test_torch_host_copies import port_config
+
 
 def _poses(seed, shape):
     rng = np.random.default_rng(seed)
@@ -85,7 +87,7 @@ def test_make_scan_matches_reference():
     seq = sim.simulate_sequence(world, traj, cfg, noise_std=0.002, seed=1)
     stamps = seq.stamps.astype(np.float32)
     ref = jax_make_scan(seq.ranges, cfg, stamp=stamps)
-    out = make_scan(seq.ranges, cfg, stamp=stamps)
+    out = make_scan(seq.ranges, port_config(cfg), stamp=stamps, device="cpu")
     assert out.num_beams == 180
     np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
     np.testing.assert_array_equal(out.angles.numpy(), np.asarray(ref.angles))

@@ -1,7 +1,9 @@
 """Import hygiene of the port: tpu_slam_torch and chip_smoke must run on a
-machine without JAX, Flax or PyYAML. The check runs in a fresh interpreter,
-since this test process already holds jax (conftest.py)."""
+machine without JAX, Flax or PyYAML, and import nothing of the JAX package,
+not even a module of it that imports no JAX. The check runs in a fresh
+interpreter, since this test process already holds jax (conftest.py)."""
 
+import inspect
 import json
 import pathlib
 import subprocess
@@ -19,7 +21,10 @@ for info in pkgutil.walk_packages(tpu_slam_torch.__path__, "tpu_slam_torch."):
 import chip_smoke  # the main guard keeps the chip run from starting
 print(json.dumps({"mods": mods,
                   "leaked": [m for m in ("jax", "flax", "yaml")
-                             if m in sys.modules]}))
+                             if m in sys.modules],
+                  "reference": sorted(
+                      m for m in sys.modules
+                      if m == "tpu_slam" or m.startswith("tpu_slam."))}))
 """
 
 
@@ -31,6 +36,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    assert out["reference"] == []
     expected = {
         "tpu_slam_torch.geometry", "tpu_slam_torch.convert",
         "tpu_slam_torch.data.scan", "tpu_slam_torch.ops.matching",
@@ -38,5 +44,25 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.parallel.distributed_step",
         "tpu_slam_torch.solver.pose_graph", "tpu_slam_torch.solver.cr_lm",
         "tpu_slam_torch.solver.pcg_lm", "tpu_slam_torch.models.offline",
+        "tpu_slam_torch.config", "tpu_slam_torch.geometry_np",
+        "tpu_slam_torch.solver.banded", "tpu_slam_torch.data.simulator",
+        "tpu_slam_torch.utils.evaluation", "tpu_slam_torch.utils.profiling",
+        "tpu_slam_torch.ops.gridmap", "tpu_slam_torch.ops.hector",
+        "tpu_slam_torch.ops.cuda.hector_fused",
+        "tpu_slam_torch.models.hector_slam",
     }
     assert expected <= set(out["mods"])
+
+
+def test_entry_points_default_to_the_card():
+    from tpu_slam_torch import _dispatch, convert
+    from tpu_slam_torch.data.scan import make_scan
+    from tpu_slam_torch.models.hector_slam import HectorSLAM
+    from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
+
+    assert _dispatch.DEFAULT_DEVICE == "cuda"
+    for fn in (PoseGraphSolver, make_scan, HectorSLAM,
+               convert.scan_from_numpy, convert.solver_from_numpy,
+               convert.hector_state_from_numpy):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == _dispatch.DEFAULT_DEVICE, fn.__name__

@@ -22,6 +22,8 @@ from tpu_slam.solver import banded
 from tpu_slam_torch.convert import scan_from_numpy
 from tpu_slam_torch.models import offline as toff
 
+from test_torch_host_copies import port_config
+
 BEAMS = 180
 
 
@@ -63,8 +65,9 @@ def test_bench_mission_graph_matches_reference_and_does_not_band():
     out = toff.offline_slam(scan_from_numpy(*(np.asarray(getattr(scans, f))
                                               for f in ("ranges", "valid",
                                                         "angles", "stamp",
-                                                        "time_increment"))),
-                            cfg, odom=odom)
+                                                        "time_increment")),
+                                            device="cpu"),
+                            port_config(cfg), odom=odom)
     assert out.candidates_tried == ref.candidates_tried
     assert sorted((e.i, e.j) for e in out.loops) == sorted(
         (e.i, e.j) for e in ref.loops)

@@ -13,18 +13,21 @@ from tpu_slam_torch.convert import scan_from_numpy
 from tpu_slam_torch.models import offline as toff
 
 from test_offline import _corridor_mission
+from test_torch_host_copies import port_config as _port_cfg
 
 
 def _port_scans(scans):
     return scan_from_numpy(*(np.asarray(getattr(scans, f)) for f in (
-        "ranges", "valid", "angles", "stamp", "time_increment")))
+        "ranges", "valid", "angles", "stamp", "time_increment")),
+        device="cpu")
+
 
 
 @pytest.fixture(scope="module")
 def missions():
     cfg, scans, seq, odom = _corridor_mission()
     ref = joff.offline_slam(scans, cfg, odom=odom)
-    out = toff.offline_slam(_port_scans(scans), cfg, odom=odom)
+    out = toff.offline_slam(_port_scans(scans), _port_cfg(cfg), odom=odom)
     return cfg, scans, seq, odom, ref, out
 
 
@@ -64,12 +67,12 @@ def test_stage_timer_records_every_stage(missions):
 
 def test_host_helpers_match_reference():
     cfg, _scans, seq, _odom = _corridor_mission()
-    ocfg = cfg.offline
-    np.testing.assert_array_equal(toff._seed_lattice(ocfg),
+    ocfg, tocfg = cfg.offline, _port_cfg(cfg).offline
+    np.testing.assert_array_equal(toff._seed_lattice(tocfg),
                                   joff._seed_lattice(ocfg))
     assert [toff._bucket(n) for n in (1, 64, 65, 1000)] == [
         joff._bucket(n) for n in (1, 64, 65, 1000)]
-    assert toff._loop_candidates(seq.gt_poses, ocfg, set()) == \
+    assert toff._loop_candidates(seq.gt_poses, tocfg, set()) == \
         joff._loop_candidates(seq.gt_poses, ocfg, set())
 
 
@@ -89,15 +92,16 @@ def test_pcm_and_thinning_match_reference():
     ocfg = dataclasses.replace(_corridor_mission()[0].offline,
                                max_solver_loops=12, pcm_chi2=50.0)
     np.testing.assert_array_equal(
-        toff.consistent_loop_set(loops_t, poses, 1e-4, ocfg),
+        toff.consistent_loop_set(loops_t, poses, 1e-4, _port_cfg(ocfg)),
         joff.consistent_loop_set(loops_j, poses, 1e-4, ocfg))
-    thin = toff._thin_loops(loops_t, ocfg)
+    thin = toff._thin_loops(loops_t, _port_cfg(ocfg))
     assert 0 < len(thin) <= 12
     assert [(e.i, e.j) for e in thin] == sorted((e.i, e.j) for e in thin)
 
 
 def test_unported_stages_raise():
     cfg, scans, _seq, odom = _corridor_mission()
+    cfg = _port_cfg(cfg)
     port = _port_scans(scans)
     with pytest.raises(NotImplementedError, match="multi-device"):
         toff.offline_slam(port, cfg, odom=odom, mesh=object())
@@ -114,6 +118,7 @@ def test_unported_stages_raise():
 
 def test_needs_two_scans():
     cfg, scans, _seq, _odom = _corridor_mission()
+    cfg = _port_cfg(cfg)
     port = _port_scans(scans)
     one = dataclasses.replace(port, **{
         f: getattr(port, f)[:1] for f in ("ranges", "valid", "angles",

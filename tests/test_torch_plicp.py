@@ -19,12 +19,14 @@ from tpu_slam.ops.pallas.plicp_fused import plicp_match_fused as jax_fused
 from tpu_slam.ops.plicp import plicp_match as jax_plicp
 from tpu_slam.parallel import distributed_step as jds
 from tpu_slam_torch import _build, _dispatch
+from tpu_slam_torch import config as tconfig
 from tpu_slam_torch.ops import matching as tmatch
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
 from tpu_slam_torch.ops.plicp import plicp_match
 from tpu_slam_torch.parallel import distributed_step as tds
 
 from test_offline import _corridor_mission
+from test_torch_host_copies import port_config as _port
 
 
 def _pairs(n_pairs, delta=(0.07, -0.03, 0.05), n=360):
@@ -108,7 +110,8 @@ def test_plicp_plain_matches_xla_path():
     cfg = PLICPConfig()
     guess = np.zeros((4, 3), np.float32)
     ref = jax_plicp(*_j(*arrays), cfg, init_pose=jnp.asarray(guess))
-    out = plicp_match(*_t(*arrays), cfg, init_pose=torch.as_tensor(guess))
+    out = plicp_match(*_t(*arrays), _port(cfg),
+                      init_pose=torch.as_tensor(guess))
     _assert_plicp_close(out, ref)
     np.testing.assert_allclose(out.error.numpy(), np.asarray(ref.error),
                                rtol=1e-4, atol=1e-7)
@@ -120,7 +123,7 @@ def test_plicp_plain_matches_fused_interpret():
     arrays = _pairs(3)
     cfg = PLICPConfig()
     ref = jax_fused(*_j(*arrays), cfg, interpret=True)
-    out = plicp_match(*_t(*arrays), cfg)
+    out = plicp_match(*_t(*arrays), _port(cfg))
     _assert_plicp_close(out, ref)
 
 
@@ -132,14 +135,14 @@ def test_plicp_sanitizes_nonfinite_invalid_beams():
     tgt[0, ~tv[0]] = np.nan
     cfg = PLICPConfig()
     ref = jax_plicp(*_j(src, sv, tgt, tv), cfg)
-    out = plicp_match(*_t(src, sv, tgt, tv), cfg)
+    out = plicp_match(*_t(src, sv, tgt, tv), _port(cfg))
     assert np.all(np.isfinite(out.pose.numpy()))
     _assert_plicp_close(out, ref)
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
     arrays = _t(*_pairs(2))
-    cfg = PLICPConfig()
+    cfg = tconfig.PLICPConfig()
     before = dict(_dispatch.LAUNCHES)
     a = plicp_match_fused(*arrays, cfg)
     b = plicp_match(*arrays, cfg)
@@ -188,7 +191,7 @@ def test_packed_matcher_matches_reference(store):
     g = gnp.relative(odom[ti], odom[si]).astype(np.float32)
     ref = np.asarray(jds.make_packed_indexed_matcher(cfg)(
         *_j(*arrays), *_j(si, ti, g)))
-    out = tds.make_packed_indexed_matcher(cfg)(
+    out = tds.make_packed_indexed_matcher(_port(cfg))(
         *_t(*arrays), *_t(si.astype(np.int64), ti.astype(np.int64), g))
     assert out.shape == (16, 14) and out.dtype == torch.float32
     np.testing.assert_allclose(out[:, :4].numpy(), ref[:, :4], atol=1e-5)
@@ -206,7 +209,7 @@ def test_chain_matcher_matches_reference(store):
     pose0 = odom[0].astype(np.float32)
     ref = np.asarray(jds.make_chain_matcher(cfg)(
         *_j(*arrays), *_j(si, ti, g, pose0)))
-    out = tds.make_chain_matcher(cfg)(
+    out = tds.make_chain_matcher(_port(cfg))(
         *_t(*arrays), *_t(si.astype(np.int64), ti.astype(np.int64), g, pose0))
     assert out.shape == (2 * B + 1, 14)
     out = out.numpy()
@@ -235,7 +238,7 @@ def test_loop_selector_matches_reference(store):
     ref = np.asarray(jds.make_loop_selector(cfg, 3)(
         *_j(*arrays), *_j(si.astype(np.int32), ti.astype(np.int32), g, rel,
                           gates)))
-    out = tds.make_loop_selector(cfg, 3)(
+    out = tds.make_loop_selector(_port(cfg), 3)(
         *_t(*arrays), *_t(si, ti, g, rel, gates)).numpy()
     assert out.shape == ref.shape == (len(rel), 16)
     assert (ref[:, 15] > 0.5).any(), "the case must exercise accepted loops"
@@ -250,7 +253,8 @@ def test_loop_selector_rejects_mixed_source_blocks(store):
     si = si.copy()
     si[1] = si[1] + 1  # the first block's seeds no longer share a source
     with pytest.raises(ValueError, match="blocks"):
-        tds.make_loop_selector(cfg, 3)(*_t(*arrays), *_t(si, ti, g, rel, gates))
+        tds.make_loop_selector(_port(cfg), 3)(*_t(*arrays),
+                                              *_t(si, ti, g, rel, gates))
 
 
 def test_factories_run_the_match_they_are_given(store):
@@ -261,23 +265,23 @@ def test_factories_run_the_match_they_are_given(store):
 
     def base(sp, sv, tp, tv, g):
         calls.append(sp.shape[0])
-        return plicp_match(sp, sv, tp, tv, cfg.plicp, init_pose=g)
+        return plicp_match(sp, sv, tp, tv, _port(cfg.plicp), init_pose=g)
 
     si, ti, g, rel, gates = _selector_inputs(cfg, seq)
     sel = _t(*arrays) + _t(si, ti, g, rel, gates)
     assert torch.equal(tds._loop_selector(base, 3)(*sel),
-                       tds.make_loop_selector(cfg, 3)(*sel))
+                       tds.make_loop_selector(_port(cfg), 3)(*sel))
     B = 16
     ci, cj = np.arange(0, B), np.arange(1, B + 1)
     chain = _t(*arrays) + _t(cj, ci, gnp.relative(odom[ci], odom[cj]).astype(
         np.float32), odom[0].astype(np.float32))
     assert torch.equal(tds._chain_matcher(base)(*chain),
-                       tds.make_chain_matcher(cfg)(*chain))
+                       tds.make_chain_matcher(_port(cfg))(*chain))
     assert calls == [len(si), B]
 
 
 def test_sharded_factories_raise():
-    from tpu_slam.config import default_config
+    from tpu_slam_torch.config import default_config
 
     with pytest.raises(NotImplementedError):
         tds.make_packed_indexed_matcher(default_config(), mesh=object())
@@ -287,7 +291,7 @@ def test_sharded_factories_raise():
 
 def test_batched_matcher_recovers_motion():
     src, sv, tgt, tv = _pairs(2, delta=(0.06, -0.02, 0.04))
-    from tpu_slam.config import default_config
+    from tpu_slam_torch.config import default_config
 
     res = tds.make_batched_matcher(default_config())(
         *_t(src, sv, tgt, tv), torch.zeros(2, 3))

@@ -3,13 +3,16 @@ tpu_slam's on the same graphs, through each route the port takes: dense,
 cyclic reduction and PCG. On the CPU the JAX solver takes its dense or CG
 program."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
+from tpu_slam import config as jconfig
 from tpu_slam import geometry_np as gnp
-from tpu_slam.config import SolverConfig
 from tpu_slam.solver.pose_graph import PoseGraphSolver as JaxSolver
 from tpu_slam_torch import _dispatch
+from tpu_slam_torch.config import SolverConfig
 from tpu_slam_torch.convert import solver_from_numpy
 from tpu_slam_torch.solver import pose_graph as tpg
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
@@ -37,7 +40,7 @@ def _ring(n=60, noise=0.01, stride=0, seed=0):
 
 
 def _jax_solve(cfg, init, edges):
-    s = JaxSolver(cfg)
+    s = JaxSolver(jconfig.SolverConfig(**dataclasses.asdict(cfg)))
     s.add_nodes(range(len(init)), init)
     for i, j, m, w in edges:
         s.add_constraint(i, j, m, information=w)
@@ -45,7 +48,7 @@ def _jax_solve(cfg, init, edges):
 
 
 def _port_solve(cfg, init, edges):
-    s = solver_from_numpy(cfg, init, edges)
+    s = solver_from_numpy(cfg, init, edges, device="cpu")
     return s.compute(), s.get_poses()
 
 
@@ -68,7 +71,7 @@ def test_cr_route_matches_reference():
     # the reference's CPU program runs PCG
     init, edges, _gt = _ring(n=96, stride=8)
     cfg = SolverConfig(use_dense_below=32)
-    s = solver_from_numpy(cfg, init, edges)
+    s = solver_from_numpy(cfg, init, edges, device="cpu")
     assert s._band_spec() is not None
     (js, jp), (ts, tp) = _jax_solve(cfg, init, edges), _port_solve(cfg, init, edges)
     np.testing.assert_allclose(tp, jp, atol=1e-3)
@@ -81,7 +84,7 @@ def test_pcg_route_matches_reference():
     edges += [(i, (i + 7) % 80, gnp.relative(init[i], init[(i + 7) % 80]),
                np.diag([100.0, 100.0, 400.0])) for i in range(0, 80, 3)]
     cfg = SolverConfig(use_dense_below=32)
-    s = solver_from_numpy(cfg, init, edges)
+    s = solver_from_numpy(cfg, init, edges, device="cpu")
     assert s._band_spec() is None
     (js, jp), (ts, tp) = _jax_solve(cfg, init, edges), _port_solve(cfg, init, edges)
     np.testing.assert_allclose(tp, jp, atol=1e-3)
@@ -102,7 +105,7 @@ def test_routes_agree_with_each_other():
 
 
 def test_covariance_input_and_incremental_surface():
-    s = PoseGraphSolver(SolverConfig())
+    s = PoseGraphSolver(SolverConfig(), device="cpu")
     s.add_node(0, [0.0, 0.0, 0.0])
     s.add_node(7, [1.2, 0.1, 0.0])
     s.add_constraint(0, 7, [1.0, 0.0, 0.0], covariance=np.eye(3) * 0.01)
@@ -120,7 +123,7 @@ def test_covariance_input_and_incremental_surface():
 
 
 def test_degenerate_covariance_is_regularized():
-    s = PoseGraphSolver(SolverConfig())
+    s = PoseGraphSolver(SolverConfig(), device="cpu")
     s.add_nodes([0, 1], [[0, 0, 0], [1, 0, 0]])
     s.add_constraints([0], [1], [[1.0, 0.0, 0.0]],
                       covariances=np.zeros((1, 3, 3)))
@@ -149,7 +152,7 @@ def test_large_band_raises_streamed_cr():
     init[:, 0] = np.arange(n) * 0.1
     edges = [(i, i + 1, np.array([0.1, 0.0, 0.0]), np.eye(3))
              for i in range(n - 1)]
-    s = solver_from_numpy(SolverConfig(), init, edges)
+    s = solver_from_numpy(SolverConfig(), init, edges, device="cpu")
     with pytest.raises(NotImplementedError, match="streamed_cr_lm"):
         s.compute()
 
@@ -168,11 +171,12 @@ def test_sq_min_delta_floor():
 
 def test_edge_arrays_and_band_spec_built_once_per_graph():
     init, edges, _gt = _ring(n=96, stride=8)
-    s = solver_from_numpy(SolverConfig(), init, edges)
+    s = solver_from_numpy(SolverConfig(), init, edges, device="cpu")
     arrays, spec = s._edge_arrays(), s._band_spec()
     assert s._edge_arrays() is arrays
     # the same topology in another solver reuses the cached spec
-    assert solver_from_numpy(SolverConfig(), init, edges)._band_spec() is spec
+    again = solver_from_numpy(SolverConfig(), init, edges, device="cpu")
+    assert again._band_spec() is spec
     # a new edge rebuilds the arrays and the spec
     s.add_constraint(3, 40, [1.0, 0.0, 0.0], information=np.eye(3))
     assert len(s._edge_arrays()[0]) == len(edges) + 1
@@ -185,7 +189,7 @@ def test_direct_inputs_match_reference_packers():
     from tpu_slam.solver import banded
 
     init, edges, _gt = _ring(n=96, stride=8)
-    s = solver_from_numpy(SolverConfig(), init, edges)
+    s = solver_from_numpy(SolverConfig(), init, edges, device="cpu")
     spec, pT8, slots = s.direct_inputs()
     means = np.stack([e[2] for e in edges])
     infos = np.stack([e[3] for e in edges])

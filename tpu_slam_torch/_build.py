@@ -49,6 +49,12 @@ SIGNATURES = {
         # M, E, iters, cg_iters, cg_tol, sq_min_delta, stream
         [_VP] * 9 + [_I, _VP, _F, _I, _I, _I, _I, _F, _F, _VP],
     ),
+    "hector_fused": (
+        "hector_fused_launch",
+        # grids, sizes, geo (host arrays), L, pts, valid, pose_in, out, N,
+        # iters_fine, iters_coarse, max_rot_step, stream
+        [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -70,23 +76,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _start_build(name: str):
+    """Start nvcc for kernel ``name`` unless its library exists; returns
+    (process or None, temporary output, final output)."""
+    out = library_path(name)
+    if out.exists():
+        return None, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, proc, tmp, out) -> None:
+    if proc is None:
+        return
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{stdout}\n{stderr}")
+    os.replace(tmp, out)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The bound library of kernel ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    _finish_build(name, *_start_build(name))
+    lib = ctypes.CDLL(str(library_path(name)))
     fn_name, argtypes = SIGNATURES[name]
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
@@ -104,7 +123,17 @@ def launch(name: str, *args) -> None:
 
 
 def build_all() -> list[Path]:
-    """Build every kernel of the package; returns the library paths."""
+    """Build every kernel of the package, one nvcc per source, all started
+    together; returns the library paths."""
+    started = {name: _start_build(name) for name in SIGNATURES}
+    try:
+        for name, job in started.items():
+            _finish_build(name, *job)
+    finally:
+        for proc, _tmp, _out in started.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
     for name in SIGNATURES:
         load(name)
     return [library_path(name) for name in SIGNATURES]

@@ -228,8 +228,9 @@ __device__ void matvec(const Ctx& k) {
   }
 }
 
-// x <- PCG solution of H x = -b (block-Jacobi preconditioner).
-__device__ void pcg(const Ctx& k, int cg_iters, float cg_tol, float* red) {
+// x <- PCG solution of H x = -b (block-Jacobi preconditioner); returns
+// the number of iterations run.
+__device__ int pcg(const Ctx& k, int cg_iters, float cg_tol, float* red) {
   const int M = k.M;
   float bb2 = 0.f, rz0 = 0.f;
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
@@ -251,7 +252,8 @@ __device__ void pcg(const Ctx& k, int cg_iters, float cg_tol, float* red) {
   const float stop2 = cg_tol * block_sum(bb2, red);
   float rz = block_sum(rz0, red);
   float rr = block_sum(bb2, red);  // r starts at -b
-  for (int it = 0; it < cg_iters && rr > stop2; ++it) {
+  int it = 0;
+  for (; it < cg_iters && rr > stop2; ++it) {
     matvec(k);
     float pap = 0.f;
     for (int m = threadIdx.x; m < M; m += blockDim.x)
@@ -281,6 +283,7 @@ __device__ void pcg(const Ctx& k, int cg_iters, float cg_tol, float* red) {
     rz = rzn;
     rr = block_sum(rrn, red);  // also publishes p for the next matvec
   }
+  return it;
 }
 
 __global__ void pcg_lm_kernel(Ctx k, float* __restrict__ out, int L,
@@ -290,11 +293,11 @@ __global__ void pcg_lm_kernel(Ctx k, float* __restrict__ out, int L,
   const int M = k.M;
   const float cost0 = graph_cost(k, k.P, red);
   float lam = lam0, laminc = 2.f, cost = cost0, good = 0.f;
-  int it = 0;
+  int it = 0, cg_total = 0;
   bool done = false;
   while (it < iters && !done) {
     normal_eq(k, lam);
-    pcg(k, cg_iters, cg_tol, red);
+    cg_total += pcg(k, cg_iters, cg_tol, red);
     float sq = 0.f;
     for (int m = threadIdx.x; m < M; m += blockDim.x)
       for (int u = 0; u < 3; ++u) {
@@ -330,7 +333,10 @@ __global__ void pcg_lm_kernel(Ctx k, float* __restrict__ out, int L,
     if (m == 2) s = good;
     if (m == 3) s = (float)it;
     out[3 * L + m] = s;
-    for (int u = 4; u < 8; ++u) out[u * L + m] = 0.f;
+    // row 4, lane 0: the PCG iterations run over the whole solve (the
+    // work this solve's data needed; the plain version leaves it 0)
+    out[4 * L + m] = m == 0 ? (float)cg_total : 0.f;
+    for (int u = 5; u < 8; ++u) out[u * L + m] = 0.f;
   }
 }
 

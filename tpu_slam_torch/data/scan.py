@@ -10,7 +10,9 @@ import dataclasses
 
 import torch
 
-from tpu_slam.config import ScanConfig
+from tpu_slam_torch import geometry
+from tpu_slam_torch._dispatch import DEFAULT_DEVICE
+from tpu_slam_torch.config import ScanConfig
 
 
 @dataclasses.dataclass
@@ -53,7 +55,7 @@ def make_scan(
     cfg: ScanConfig,
     stamp=0.0,
     dtype=torch.float32,
-    device=None,
+    device=DEFAULT_DEVICE,
 ) -> Scan:
     """Build a Scan (or batch) from raw range arrays + sensor config."""
     ranges = torch.as_tensor(ranges, dtype=dtype, device=device)
@@ -78,3 +80,24 @@ def make_scan(
         ranges=ranges, valid=valid, angles=angles, stamp=stamp,
         time_increment=tinc,
     )
+
+
+def world_points(scan: Scan, pose: torch.Tensor) -> torch.Tensor:
+    """Scan endpoints in the world frame given sensor pose(s), (..., N, 2);
+    ``pose`` (..., 3) broadcasts against the scan batch."""
+    return geometry.apply(pose, scan.points())
+
+
+def stack_scans(scans: list[Scan]) -> Scan:
+    """Stack a list of equally-shaped scans into a leading batch axis."""
+    return Scan(**{
+        f.name: torch.stack([getattr(s, f.name) for s in scans])
+        for f in dataclasses.fields(Scan)
+    })
+
+
+def index_scan(batch: Scan, i) -> Scan:
+    """Select scan(s) ``i`` from the leading batch axis."""
+    return Scan(**{
+        f.name: getattr(batch, f.name)[i] for f in dataclasses.fields(Scan)
+    })

@@ -23,14 +23,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_slam import geometry_np as gnp
-from tpu_slam.config import SLAMConfig
-from tpu_slam.utils.profiling import StageTimer
+from tpu_slam_torch import geometry_np as gnp
+from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.data.scan import Scan
 from tpu_slam_torch.parallel.distributed_step import (
     make_chain_matcher, make_loop_selector,
 )
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
+from tpu_slam_torch.utils.profiling import StageTimer
 
 
 @dataclasses.dataclass

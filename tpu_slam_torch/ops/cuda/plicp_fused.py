@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_slam.config import PLICPConfig
 from tpu_slam_torch import _build, _dispatch
+from tpu_slam_torch.config import PLICPConfig
 from tpu_slam_torch.ops.plicp import PLICPResult, covariance_from_h, plicp_match
 
 MAX_BEAMS = 1024  # one thread per source beam

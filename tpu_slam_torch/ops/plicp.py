@@ -14,8 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from tpu_slam.config import PLICPConfig
 from tpu_slam_torch import geometry as geo
+from tpu_slam_torch.config import PLICPConfig
 from tpu_slam_torch.ops.matching import (
     _take_rows,
     masked_quantiles,

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_slam.config import SLAMConfig
 from tpu_slam_torch import geometry as geo
+from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
 from tpu_slam_torch.ops.plicp import PLICPResult, plicp_match
 

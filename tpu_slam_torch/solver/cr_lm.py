@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_slam.solver.banded import NBANKS, SLOT_ROWS
 from tpu_slam_torch import _build, _dispatch
+from tpu_slam_torch.solver.banded import NBANKS, SLOT_ROWS
 from tpu_slam_torch.solver.lm import lm_loop, norm_angle, omega, pack
 
 K_MAX = 512  # routing split kept from the reference (cr_lm_applicable)

@@ -54,7 +54,8 @@ def fused_lm_solve(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
     infos (E, 3, 3), mask (E,) bool, free_mask (M,) bool. Returns
     (poses (M, 3), cost0, cost, iterations, good, packed): ``packed`` is the
     (8, max(M, 4)) array with the poses in rows 0..2 and (cost0, cost, good,
-    iters) in row 3, lanes 0..3."""
+    iters) in row 3, lanes 0..3. The kernel also puts the number of PCG
+    iterations it ran in row 4, lane 0 (0 from the plain version)."""
     run = pcg_lm_plain if _dispatch.route(poses) == "cpu" else _launch
     packed = run(poses, ei, ej, means, infos, mask, free_mask, lam0,
                  iters=iters, cg_iters=cg_iters, cg_tol=cg_tol,

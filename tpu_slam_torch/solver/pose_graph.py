@@ -25,8 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_slam.config import SolverConfig
-from tpu_slam.solver import banded
+from tpu_slam_torch._dispatch import DEFAULT_DEVICE
+from tpu_slam_torch.config import SolverConfig
+from tpu_slam_torch.solver import banded
 from tpu_slam_torch.solver.cr_lm import K_MAX, fused_cr_lm
 from tpu_slam_torch.solver.lm import (  # noqa: F401  (the reference's names)
     edge_jacobians,
@@ -110,7 +111,7 @@ class PoseGraphSolver:
     are kept on the host in float64; each solve uploads them to
     ``device`` in float32."""
 
-    def __init__(self, cfg: SolverConfig, device="cpu", mesh=None):
+    def __init__(self, cfg: SolverConfig, device=DEFAULT_DEVICE, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "the graph-parallel LM over a mesh is not ported yet "
