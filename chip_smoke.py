@@ -39,10 +39,30 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      at the full grid. Every matched scan must launch the Hector kernel
      once and the ATE must stay ≤ 0.06 m; then its scans/s (median of 3
      runs after the warm one) and one run under ``torch.profiler``;
- 12. one JSON line with every kernel (its launches, error against its
+ 12. the correlative response kernel against its plain version, int32
+     for int32, at the shapes of examples/run_karto_slam.py's recipe at
+     the full ``default_config()``: the front-end coarse (21 × 16²) and
+     fine (11 × 3²) passes on the 2,445² grid of a 128-scan base, and the
+     loop coarse pass (21 × 81²) on eight 645² grids in one launch; with
+     both times and the bound;
+ 13. the same on edge cases: windows clamped at every grid edge, starts
+     below 0 and past the edge, no valid beam (and a match without one,
+     which takes the response expansion), 1 and 1,500 beams, 1 lane;
+ 14. the wall of each layer of one front-end match at that shape
+     (``find_valid_points``, grid build, coarse and fine pass, the whole
+     match and its read), then the online Karto main path, with the
+     launch counters zeroed first:
+     ``KartoSLAM.run`` over the recipe's 352 scans at the full width.
+     Every match must run the correlative kernel. Every solve takes the
+     dense LM and no LM kernel: the graphs (≤ 126 nodes, 127 edges) fail
+     the reference's shape test for its fused LM, as on its TPU. The ATE
+     must stay ≤ 0.01 m; then its scans/s (median of 3 runs after the
+     warm one),
+     the stage timer, and one run under ``torch.profiler``;
+ 15. one JSON line with every kernel (its launches, error against its
      plain version, both times, and its bound: the larger of bytes over
-     3.35 TB/s and FLOPs over 67 TFLOP/s), then ``{"ok": true, ...}``
-     last.
+     3.35 TB/s and operations over 67 T/s in float32, or 16.7 T/s for the
+     correlative kernel's int32 adds), then ``{"ok": true, ...}`` last.
 Any failing phase raises: the script then exits non-zero and never prints
 the ok line. Without a CUDA device it raises at phase 1.
 """
@@ -64,12 +84,15 @@ from tpu_slam_torch import geometry_np as gnp
 from tpu_slam_torch.config import SolverConfig, default_config
 from tpu_slam_torch.convert import solver_from_numpy
 from tpu_slam_torch.data import simulator as sim
-from tpu_slam_torch.data.scan import index_scan, make_scan
+from tpu_slam_torch.data.scan import Scan, index_scan, make_scan
 from tpu_slam_torch.models import offline
 from tpu_slam_torch.models.hector_slam import HectorSLAM, _beams
+from tpu_slam_torch.models.karto.pipeline import KartoSLAM
 from tpu_slam_torch.models.offline import offline_slam
+from tpu_slam_torch.ops import correlative as corr
 from tpu_slam_torch.ops import gridmap as gm
 from tpu_slam_torch.ops import hector as hec
+from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
 from tpu_slam_torch.ops.cuda.hector_fused import hector_match_fused
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
 from tpu_slam_torch.ops.plicp import plicp_match
@@ -80,7 +103,7 @@ from tpu_slam_torch.parallel.distributed_step import (
 from tpu_slam_torch.solver import banded
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
-from tpu_slam_torch.solver.pose_graph import _sq_min_delta
+from tpu_slam_torch.solver.pose_graph import _route, _sq_min_delta
 from tpu_slam_torch.utils.evaluation import ate_rmse
 from tpu_slam_torch.utils.profiling import StageTimer
 
@@ -100,15 +123,22 @@ HECTOR_POSE_TOL = 2e-4
 HECTOR_H_RTOL, HECTOR_H_ATOL = 1e-3, 1e-2
 HECTOR_ATE_MAX = 0.06  # m, map frame, test_hector.py's bound
 HECTOR_SCANS = 150  # examples/run_hector_slam.py
+KARTO_ATE_MAX = 0.01  # m
+# the reference's run of the Karto recipe at the full width on the CPU
+KARTO_REF = {"accepted": 126, "closures": 2, "ate": 0.00577}
 # the least time the card could take: published H100 SXM peaks
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+# int32 adds: 132 SMs × 64 INT32 lanes at the 1,980 MHz boost clock (the
+# data sheet gives no int32 rate outside the tensor cores)
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The larger of bytes over the memory rate and FLOPs over the f32
-    rate, and which one sets it."""
-    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+def bound(nbytes: float, ops: float, peak: float = PEAK_F32_FLOPS) -> dict:
+    """The larger of bytes over the memory rate and operations over their
+    peak rate (float32 outside the tensor cores unless ``peak`` says
+    otherwise), and which one sets it."""
+    tb, tf = nbytes / PEAK_BYTES_PER_S, ops / peak
     return {"bound_ms": max(tb, tf) * 1e3,
             "bound_by": "bytes" if tb >= tf else "operations",
             "library_ms": None}  # no single PyTorch call computes it
@@ -892,6 +922,334 @@ def phase_hector_main(dev) -> int:
     return launches["hector_fused"]
 
 
+def _compose32(a, b):
+    """The reference's ``geometry.compose`` as JAX runs it outside ``jit``:
+    float32, every operation rounded on its own, glibc's sin, cos and
+    atan2 (``ops/correlative.sincosf``, ``atan2f``). a, b: (3,) float32."""
+    s, c = corr.sincosf(a[2:3])
+    st, ct = corr.sincosf(a[2:3] + b[2:3])
+    return torch.cat([(a[0:1] + c * b[0:1]) - s * b[1:2],
+                      (a[1:2] + s * b[0:1]) + c * b[1:2],
+                      corr.atan2f(st, ct)])
+
+
+def _inverse32(a):
+    s, c = corr.sincosf(a[2:3])
+    sn, cn = corr.sincosf(-a[2:3])
+    return torch.cat([-(c * a[0:1] + s * a[1:2]),
+                      -((-s) * a[0:1] + c * a[1:2]), corr.atan2f(sn, cn)])
+
+
+def drifted_odometry(gt, seed: int = 3, trans_sigma: float = 0.02,
+                     rot_sigma: float = 0.004) -> np.ndarray:
+    """tests/test_karto.py's drifting wheel odometry, bit for bit: each
+    true relative motion plus N(0, σ) noise from default_rng(seed),
+    integrated in float32."""
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    odom = [gt[0].copy()]
+    for i in range(1, len(gt)):
+        d = _compose32(_inverse32(f32(gt[i - 1])), f32(gt[i])).numpy()
+        d[:2] += rng.normal(0, trans_sigma, 2)
+        d[2] += rng.normal(0, rot_sigma)
+        odom.append(_compose32(f32(odom[-1]), f32(d)).numpy())
+    return np.asarray(odom)
+
+
+def karto_recipe(dev):
+    """examples/run_karto_slam.py's recipe at the full ``default_config()``
+    (360 beams, 12 m; the 0.3 m / 0.01 m front grid of 2,445² cells, the
+    8 m / 0.05 m loop grid of 645²): the corridor loop (arm 9 m, width
+    2.6 m, 0.9 m/s, 352 scans), noise 0.004, seed 8, and the drifting
+    odometry. Returns (cfg, scans on ``dev``, odometry, true poses)."""
+    cfg = default_config()
+    traj = sim.loop_trajectory(arm=9.0, width=2.6, speed=0.9)
+    world = sim.corridor_loop_world(arm=9.0, width=2.6)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
+                                seed=8)
+    scans = make_scan(seq.ranges, cfg.scan,
+                      stamp=seq.stamps.astype(np.float32), device=dev)
+    return cfg, scans, drifted_odometry(seq.gt_poses), seq.gt_poses
+
+
+def karto_records(cfg, scans, gt, dev):
+    """Each scan as the mapper keeps it (``_make_record``: 359 beams, raw
+    endpoints), at its true pose: a mapper on ``dev``, the laser points
+    (T, 359, 2) and valid flags on ``dev``, the poses (T, 3) float32."""
+    slam = KartoSLAM(cfg, device=dev)
+    host = Scan(**{f.name: getattr(scans, f.name).cpu().numpy()
+                   for f in dataclasses.fields(Scan)})
+    recs = [slam._make_record(index_scan(host, t), gt[t], "laser0")
+            for t in range(len(gt))]
+    pts = torch.as_tensor(np.stack([r.pts_laser for r in recs]), device=dev)
+    valid = torch.as_tensor(np.stack([r.beam_valid for r in recs]),
+                            device=dev)
+    return slam, pts, valid, torch.as_tensor(gt, dtype=torch.float32,
+                                             device=dev)
+
+
+def response_case(matcher, idx, pts, valid, poses, query: int, offset,
+                  fine: bool = False):
+    """One pass of ``matcher`` as the mapper runs it: lanes of base scans
+    ``idx`` (C, S) rows (−1 padded) at their poses, the grid of each lane
+    (uint8), and the window starts of scan ``query`` searched from its pose
+    plus ``offset``. Returns the kernel's arguments."""
+    p = matcher.p
+    dev = pts.device
+    idx = torch.as_tensor(idx, device=dev)
+    member = idx >= 0
+    rows = idx.clamp(min=0)
+    center = poses[query] + torch.as_tensor(offset, dtype=torch.float32,
+                                            device=dev)
+    wp = corr.apply_pose(poses[rows], pts[rows])
+    keep = corr.find_valid_points(wp, valid[rows] & member[..., None],
+                                  center[:2])
+    C = idx.shape[0]
+    grid = corr.build_correlation_grid(
+        p, center[:2], wp.reshape(C, -1, 2), keep.reshape(C, -1))
+    if fine:
+        xo, yo, n = matcher.fine_x, matcher.fine_y, matcher.n_angles_fine
+        ao, ar = matcher.fine_angle_offset, p.fine_angle_offset
+    else:
+        xo, yo = matcher.coarse_x, matcher.coarse_y
+        n, ao, ar = matcher.n_angles_coarse, p.angle_offset, p.angle_res
+    sc = center.expand(C, 3)
+    angles = corr.angle_ladder(sc[:, 2:3], ao, ar, n)
+    stride = corr._lattice_stride(xo, yo, p.resolution)
+    q_valid = valid[query].contiguous()
+    ys, xs = corr.lattice_starts(p, center[:2], sc,
+                                 pts[query] * corr.recip32(p.resolution),
+                                 q_valid, angles, xo, yo, stride)
+    return grid.to(torch.uint8), ys, xs, q_valid, len(xo), len(yo), stride
+
+
+def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
+                     reps=(20, 2)):
+    """The kernel against its plain version: int32 equality, both times
+    (CUDA events; none when ``reps`` is 0) and the bound of this work."""
+
+    def kern():
+        return responses_sliced(grid, ys, xs, valid, nx, ny, stride)
+
+    def plain():
+        return corr.sum_windows(grid, ys, xs, valid, nx, ny, stride)
+
+    k, pl = kern(), plain()
+    torch.cuda.synchronize()
+    err = int((k - pl).abs().max())
+    C, A, N = ys.shape
+    nv = int(valid.sum())
+    # each input read once (the grids, the starts, the flags), the
+    # numerators written once; one int32 add per lane, heading, candidate
+    # and valid beam
+    work = bound(grid.numel() + 8 * ys.numel() + N + 4 * k.numel(),
+                 float(C * A * nx * ny * nv), PEAK_INT32_OPS)
+    ms = cuda_ms(kern, reps[0]) if reps[0] else None
+    plain_ms = cuda_ms(plain, reps[1]) if reps[1] else None
+    times = (f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms" if reps[0]
+             else "not timed")
+    print(f"{label}: lanes={C} headings={A} lattice={ny}x{nx} stride="
+          f"{stride} beams={N} valid={nv} grid {grid.shape[1]}x"
+          f"{grid.shape[2]} int32 equal {err == 0} max|d|={err} sum "
+          f"{int(k.sum())} {times} bound {work['bound_ms']:.6f} ms "
+          f"({work['bound_by']})", flush=True)
+    if err != 0 or k.shape != (C, A, nx * ny):
+        raise AssertionError(f"{label}: the correlative kernel disagrees "
+                             "with its plain version")
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            **work}
+
+
+def phase_correlative(dev, cfg, scans, gt):
+    """The correlative kernel at the recipe's shapes: the front coarse and
+    fine passes of scan 130 against the 128 scans before it (one lane),
+    and the loop coarse pass of the last scan, which revisits the start,
+    against eight 10-scan chains around the loop (eight lanes). Returns
+    the loop pass's numbers and what the edge cases reuse."""
+    slam, pts, valid, poses = karto_records(cfg, scans, gt, dev)
+    base = np.arange(2, 130)[None]  # 128 scans: the 128-row bucket
+    front = response_case(slam.front_matcher, base, pts, valid, poses, 130,
+                          [0.03, -0.02, 0.01])
+    response_compare("correlative front coarse", *front)
+    fine = response_case(slam.front_matcher, base, pts, valid, poses, 130,
+                         [0.004, -0.003, 0.002], fine=True)
+    response_compare("correlative front fine", *fine)
+    chains = np.full((8, 16), -1)  # 16: the mapper's bucket for 10 scans
+    for k, s0 in enumerate(range(0, 320, 40)):
+        chains[k, :10] = np.arange(s0, s0 + 10)
+    loop = response_case(slam.loop_matcher, chains, pts, valid, poses,
+                         len(gt) - 1, [0.2, -0.15, 0.03])
+    out = response_compare("correlative loop coarse", *loop, reps=(10, 1))
+    print("correlative library: none; no single PyTorch call computes these "
+          "sums: each beam's window start is shifted to stay inside the grid "
+          "(dynamic_slice's wrap of a negative start, then its clamp), per "
+          "lane and heading; a convolution with a one-hot kernel of the "
+          "rotated beams computes them only where no window is shifted",
+          flush=True)
+    return out, (slam, pts, valid, poses), front
+
+
+def phase_correlative_edges(dev, records, front) -> None:
+    """The kernel against its plain version off the main path's shapes."""
+    slam, pts, valid, poses = records
+    grid, ys, xs, v, nx, ny, stride = front
+    _c, H, W = grid.shape
+    # a grid of random values 0..100, so that a window at an edge, where
+    # the recipe's grid holds zeros, still sums something
+    g = torch.Generator().manual_seed(0)
+    grid = torch.randint(0, 101, grid.shape, generator=g,
+                         dtype=torch.uint8).to(dev)
+    # first candidates at every grid edge and corner, below 0 and past the
+    # far edge: window_starts wraps and clamps them
+    q = pts[130] * corr.recip32(slam.front_matcher.p.resolution)
+    angles = corr.angle_ladder(poses[130, 2:3][None], 0.35, 0.035, 21)
+    for c0 in ((0, 0), (W - 1, 0), (0, H - 1), (W - 1, H - 1), (-40, -40),
+               (W + 40, H + 40), (W // 2, -3)):
+        cand0 = torch.tensor([c0], dtype=torch.int32, device=dev)
+        y2, x2 = corr.window_starts(q, v, angles, cand0, H, W, nx, ny, stride)
+        response_compare(f"edge correlative cand0={c0}", grid, y2, x2, v, nx,
+                         ny, stride, reps=(0, 0))
+    # starts outside [0, dim − span]: the kernel clamps them as its plain
+    # version does, and reads nothing outside the grid
+    response_compare("edge correlative unclamped starts", grid, ys + 5000,
+                     xs - 5000, v, nx, ny, stride, reps=(0, 0))
+    none = torch.zeros_like(v)
+    response_compare("edge correlative no valid beam", grid, ys, xs, none,
+                     nx, ny, stride, reps=(0, 0))
+    # 1 beam, and 1,500 beams (more than a block stages: split in chunks)
+    response_compare("edge correlative 1 beam", grid,
+                     ys[..., :1].contiguous(), xs[..., :1].contiguous(),
+                     v[:1].contiguous(), nx, ny, stride, reps=(0, 0))
+    big = torch.randint(0, 2000, (1, ys.shape[1], 1500), generator=g,
+                        dtype=torch.int32).to(dev)
+    response_compare("edge correlative 1,500 beams", grid, big,
+                     big.flip(-1).contiguous(),
+                     torch.ones(1500, dtype=torch.bool, device=dev), nx, ny,
+                     stride, reps=(0, 0))
+    # a match whose scan has no valid beam: response 0, so the response
+    # expansion runs 3 more passes, each a coarse and a fine launch
+    m = slam.front_matcher
+    wp = corr.apply_pose(poses[2:130], pts[2:130]).reshape(-1, 2)
+    before = _dispatch.LAUNCHES["correlative_response"]
+    r = m.match(wp, valid[2:130].reshape(-1), pts[130], none, poses[130])
+    n = _dispatch.LAUNCHES["correlative_response"] - before
+    print(f"edge correlative match without a valid beam: response "
+          f"{float(r.response)} after {n} kernel launches", flush=True)
+    if float(r.response) != 0.0 or n != 8:
+        raise AssertionError("a match without a valid beam must answer 0 "
+                             "after the 3 expansion passes (8 launches)")
+
+
+def phase_karto_layers(dev, records) -> None:
+    """Wall per call of each layer of one front-end match at the recipe's
+    shape (scan 130 against the 128 scans before it, one lane), each call
+    ended by a synchronize, median of 5 after a warm one: the view filter
+    (``find_valid_points``), the grid build, the coarse and the fine pass
+    (each with its kernel launch), and the whole match through the store
+    with its one device→host read."""
+    slam, pts, valid, poses = records
+    m = slam.front_matcher
+    p = m.p
+    rows = torch.arange(2, 130, device=dev)
+    center = poses[130] + torch.tensor([0.03, -0.02, 0.01], device=dev)
+    wp = corr.apply_pose(poses[rows], pts[rows])[None]
+    bv = valid[rows][None]
+    keep = corr.find_valid_points(wp, bv, center[:2])
+    flat = wp.reshape(1, -1, 2), keep.reshape(1, -1)
+    grid = corr.build_correlation_grid(p, center[:2], *flat).to(torch.uint8)
+    coarse_args = (m.coarse_x, m.coarse_y, m.n_angles_coarse, p.angle_offset,
+                   p.angle_res, True)
+    coarse = corr.correlate_scan(grid, p, center[:2], center[None], pts[130],
+                                 valid[130], *coarse_args)
+    fine_args = (m.fine_x, m.fine_y, m.n_angles_fine, m.fine_angle_offset,
+                 p.fine_angle_offset, True)
+    idx = np.arange(2, 130)[None]
+    host = [t.cpu().numpy() for t in (poses[rows][None], pts[130],
+                                      valid[130], center)]
+    layers = {
+        "find_valid_points": lambda: corr.find_valid_points(wp, bv,
+                                                            center[:2]),
+        "grid build": lambda: corr.build_correlation_grid(p, center[:2],
+                                                          *flat),
+        "coarse pass": lambda: corr.correlate_scan(
+            grid, p, center[:2], center[None], pts[130], valid[130],
+            *coarse_args),
+        "fine pass": lambda: corr.correlate_scan(
+            grid, p, center[:2], coarse.best_pose, pts[130], valid[130],
+            *fine_args),
+        "whole match and read": lambda: m.match_chains_store(
+            pts, valid, idx, host[0], host[1], host[2], host[3]),
+    }
+    out = []
+    for name, fn in layers.items():
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out.append(f"{name} {sorted(walls)[2]:.3f} ms")
+    print("karto front match layers (wall per call, median of 5): "
+          + "; ".join(out), flush=True)
+
+
+def karto_run(cfg, scans, odom, dev):
+    """One ``KartoSLAM.run`` over the recipe; (mapper, accepted indices,
+    wall s)."""
+    slam = KartoSLAM(cfg, device=dev)
+    t0 = time.perf_counter()
+    acc = slam.run(scans, odom)
+    torch.cuda.synchronize()
+    return slam, acc, time.perf_counter() - t0
+
+
+def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
+    """The counted online Karto run at full width, its rate, stages and
+    profile."""
+    T = len(gt)
+    _dispatch.reset_launches()
+    slam, acc, wall = karto_run(cfg, scans, odom, dev)
+    launches = dict(_dispatch.LAUNCHES)
+    est = slam.trajectory()
+    ate = float(ate_rmse(est, gt[acc]))
+    solves = slam.timer.counts["solve"]
+    print(f"karto main path: scans={T} accepted {len(acc)} (reference "
+          f"{KARTO_REF['accepted']}) closures {slam.loop_closures} (reference "
+          f"{KARTO_REF['closures']}) edges {slam.solver.num_edges} solves "
+          f"{solves} ATE {ate:.5f} m (reference {KARTO_REF['ate']} m, raw "
+          f"odometry {float(ate_rmse(odom[acc], gt[acc])):.4f} m) wall "
+          f"{wall:.2f} s; launches {launches}", flush=True)
+    if est.shape != (len(acc), 3) or not np.all(np.isfinite(est)):
+        raise AssertionError("Karto poses are not finite (accepted, 3)")
+    if ate > KARTO_ATE_MAX:
+        raise AssertionError(f"Karto ATE {ate:.5f} m > {KARTO_ATE_MAX} m")
+    if launches["correlative_response"] == 0:
+        raise AssertionError("the Karto run launched no correlative kernel")
+    route = _route(slam.solver.num_nodes, slam.solver.num_edges, dev,
+                   slam.solver.cfg)
+    if (slam.loop_closures == 0 or solves == 0 or route != "dense"
+            or launches["pcg_lm"] or launches["cr_lm"]):
+        raise AssertionError("the Karto solves must take the dense LM, as "
+                             "the reference's do on its TPU at this size")
+    print("karto stage timer (counted run):\n" + slam.timer.report(),
+          flush=True)
+    walls = [karto_run(cfg, scans, odom, dev)[2] for _ in range(4)]
+    rates = sorted(T / w for w in walls[1:])
+    print(f"karto: scans/s median {rates[1]:.1f} (min {rates[0]:.1f} max "
+          f"{rates[2]:.1f}) over 3 runs after the warm one, {T} scans "
+          f"offered per run", flush=True)
+    wall_us, busy, per = device_profile(
+        lambda: karto_run(cfg, scans, odom, dev))
+    print(profile_line(f"karto run ({T} scans)", wall_us, busy, per),
+          flush=True)
+    return launches
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -907,6 +1265,11 @@ def main() -> None:
     hector = phase_hector(dev)
     phase_hector_edges(dev)
     hector_launches = phase_hector_main(dev)
+    kcfg, kscans, kodom, kgt = karto_recipe(dev)
+    resp, records, front = phase_correlative(dev, kcfg, kscans, kgt)
+    phase_correlative_edges(dev, records, front)
+    phase_karto_layers(dev, records)
+    karto_launches = phase_karto_main(dev, kcfg, kscans, kodom, kgt)
     kernels = [
         {"name": "plicp_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/plicp_fused.cu",
@@ -924,6 +1287,10 @@ def main() -> None:
          "source": "tpu_slam_torch/csrc/hector_fused.cu",
          "replaces": "tpu_slam/ops/pallas/hector_fused.py:269",
          "launches": hector_launches, **hector},
+        {"name": "correlative_response", "route": "cuda",
+         "source": "tpu_slam_torch/csrc/correlative_response.cu",
+         "replaces": "tpu_slam/ops/pallas/correlative_response.py:160",
+         "launches": karto_launches["correlative_response"], **resp},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules (config,
 geometry_np, data/simulator, solver/banded, utils/evaluation,
-utils/profiling) compute what the JAX package's modules compute, on the
+utils/profiling, utils/events) compute what the JAX package's modules compute, on the
 same seeded inputs. ``port_config`` is the tests' one way to hand both
 packages the same settings."""
 
@@ -16,12 +16,14 @@ from tpu_slam import geometry_np as jgnp
 from tpu_slam.data import simulator as jsim
 from tpu_slam.solver import banded as jbanded
 from tpu_slam.utils import evaluation as jeval
+from tpu_slam.utils import events as jevents
 from tpu_slam_torch import config as tconfig
 from tpu_slam_torch import geometry_np as tgnp
 from tpu_slam_torch.convert import config_from_dict
 from tpu_slam_torch.data import simulator as tsim
 from tpu_slam_torch.solver import banded as tbanded
 from tpu_slam_torch.utils import evaluation as teval
+from tpu_slam_torch.utils import events as tevents
 from tpu_slam_torch.utils.profiling import StageTimer, ThroughputCounter, sync
 
 YAMLS = sorted((pathlib.Path(jconfig.__file__).parent / "configs").glob(
@@ -168,3 +170,37 @@ def test_profiling_counts_and_syncs_on_the_cpu():
     tc = ThroughputCounter()
     tc.tick(5)
     assert tc.n == 5 and tc.per_sec > 0.0
+
+
+def test_event_bus_is_the_same(caplog):
+    """The MapperListener bus: each Fire* kind in order, listeners added
+    and removed, and the logging listener's line."""
+    heard = {}
+    buses = {}
+    for name, mod in (("jax", jevents), ("port", tevents)):
+        bus = mod.EventBus()
+        got = heard.setdefault(name, [])
+
+        def listen(ev, got=got):
+            got.append((ev.kind, ev.message))
+
+        bus.add_listener(listen)
+        bus.info("start")
+        bus.loop_closure_check("scan 3 vs chain[0..9]")
+        bus.begin_loop_closure("closing")
+        bus.remove_listener(listen)
+        bus.end_loop_closure("closed")
+        bus.debug("harvested")
+        buses[name] = bus
+    assert heard["port"] == heard["jax"] == [
+        ("info", "start"), ("loop_closure_check", "scan 3 vs chain[0..9]"),
+        ("begin_loop_closure", "closing")]
+    assert [(e.kind, e.message) for e in buses["port"].history] == [
+        (e.kind, e.message) for e in buses["jax"].history]
+    assert [f.name for f in dataclasses.fields(tevents.Event)] == [
+        f.name for f in dataclasses.fields(jevents.Event)]
+    with caplog.at_level("INFO"):
+        ev = tevents.Event("info", "hello")
+        tevents.logging_listener(ev)
+        jevents.logging_listener(ev)
+    assert [r.getMessage() for r in caplog.records] == ["[info] hello"] * 2

@@ -50,6 +50,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.ops.gridmap", "tpu_slam_torch.ops.hector",
         "tpu_slam_torch.ops.cuda.hector_fused",
         "tpu_slam_torch.models.hector_slam",
+        "tpu_slam_torch.ops.correlative",
+        "tpu_slam_torch.ops.cuda.correlative_response",
+        "tpu_slam_torch.models.karto.pipeline", "tpu_slam_torch.utils.events",
+        "tpu_slam_torch.utils.checkpoint",
     }
     assert expected <= set(out["mods"])
 
@@ -58,11 +62,13 @@ def test_entry_points_default_to_the_card():
     from tpu_slam_torch import _dispatch, convert
     from tpu_slam_torch.data.scan import make_scan
     from tpu_slam_torch.models.hector_slam import HectorSLAM
+    from tpu_slam_torch.models.karto.pipeline import DeviceScanStore, KartoSLAM
+    from tpu_slam_torch.ops.correlative import CorrelativeMatcher
     from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
 
     assert _dispatch.DEFAULT_DEVICE == "cuda"
-    for fn in (PoseGraphSolver, make_scan, HectorSLAM,
-               convert.scan_from_numpy, convert.solver_from_numpy,
-               convert.hector_state_from_numpy):
+    for fn in (PoseGraphSolver, make_scan, HectorSLAM, KartoSLAM,
+               DeviceScanStore, CorrelativeMatcher, convert.scan_from_numpy,
+               convert.solver_from_numpy, convert.hector_state_from_numpy):
         default = inspect.signature(fn).parameters["device"].default
         assert default == _dispatch.DEFAULT_DEVICE, fn.__name__

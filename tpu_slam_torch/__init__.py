@@ -8,5 +8,5 @@ kernel, a tensor on ``cpu`` runs the kernel's plain PyTorch version
 ``_dispatch.DEFAULT_DEVICE``, the card, unless given ``device="cpu"``.
 The package imports nothing of ``tpu_slam``: the host modules it needs
 (config, geometry_np, data/simulator, solver/banded, utils/evaluation,
-utils/profiling) are its own copies.
+utils/profiling, utils/events, utils/checkpoint) are its own copies.
 """

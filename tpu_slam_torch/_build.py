@@ -55,6 +55,12 @@ SIGNATURES = {
         # iters_fine, iters_coarse, max_rot_step, stream
         [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
     ),
+    "correlative_response": (
+        "correlative_response_launch",
+        # grid, ys, xs, valid, out, C, H, W, A, N, nx, ny, stride, chunk,
+        # stream
+        [_VP] * 5 + [_I] * 9 + [_VP],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,11 @@
 """Carry state across from the JAX package.
 
 There are no weights; the state that crosses is the configuration, the
-scans, the pose graph and the Hector maps, all as plain Python or numpy
-(``dataclasses.asdict`` of a JAX config, a JAX ``Scan``'s fields after
-``np.asarray``, a JAX ``PoseGraphSolver``'s ``_poses`` / ``_edges``, a JAX
-``HectorSLAM``'s grids and poses). The tests feed both packages the same
+scans, the pose graph, the Hector maps and the Karto mapper, all as plain
+Python or numpy (``dataclasses.asdict`` of a JAX config, a JAX ``Scan``'s
+fields after ``np.asarray``, a JAX ``PoseGraphSolver``'s ``_poses`` /
+``_edges``, a JAX ``HectorSLAM``'s grids and poses) or as the JAX
+package's Karto checkpoint file. The tests feed both packages the same
 inputs through these, without the port importing the JAX package.
 """
 
@@ -18,7 +19,9 @@ from tpu_slam_torch._dispatch import DEFAULT_DEVICE
 from tpu_slam_torch.config import SLAMConfig, SolverConfig
 from tpu_slam_torch.data.scan import Scan
 from tpu_slam_torch.models.hector_slam import HectorSLAM
+from tpu_slam_torch.models.karto.pipeline import KartoSLAM
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
+from tpu_slam_torch.utils.checkpoint import load_karto
 
 
 def config_from_dict(d: dict) -> SLAMConfig:
@@ -75,4 +78,12 @@ def hector_state_from_numpy(slam: HectorSLAM, grids, last_pose,
     slam._last_map_update_pose = (
         None if last_map_update_pose is None
         else np.array(last_map_update_pose, np.float32))
+    return slam
+
+
+def karto_state_from_checkpoint(slam: KartoSLAM, path: str) -> KartoSLAM:
+    """Load a Karto snapshot (``save_karto``'s ``.npz``, of either package)
+    into the port's freshly built ``slam``: scans, running buffers, graph
+    and solver. Returns ``slam``, its scan store on ``slam.device``."""
+    load_karto(slam, path)
     return slam

@@ -5,13 +5,19 @@ The residual model, the normal equations and the LM schedule are doSPA's
 (``solver/lm.py``); the loop stops once ‖δ‖² is under the float32-floored
 ``convergence_delta``.
 
-Routing depends on the graph, never on the device:
-  * nodes ≤ ``use_dense_below`` → the dense LM below (plain PyTorch, the
-    reference's own route off the TPU);
-  * a graph that bands under RCM with K ≤ 512 supernodes → the
+Routing (``_route``) follows the reference's on its TPU:
+  * nodes ≤ ``use_dense_below`` on ``cuda`` → the block-Jacobi PCG LM
+    (``solver/pcg_lm.fused_lm_solve``) where the reference runs its fused
+    Pallas LM: ``use_fused_kernel``, ``cg_restarts ≤ 1``, no ``use_schur``,
+    and the kernel's shapes (nodes and edges rounded up to 256) neither
+    above the power-of-two buckets of the XLA program nor past the one-hot
+    cap. Graphs of ≤ 128 nodes or ≤ 128 edges fail the bucket test. Every
+    other small graph → the dense LM below, which is also the reference's
+    route off the TPU;
+  * a larger graph that bands under RCM with K ≤ 512 supernodes → the
     cyclic-reduction LM (``solver/cr_lm.fused_cr_lm``);
-  * a graph that does not band, below ``f64_schur_above`` nodes → the
-    block-Jacobi PCG LM (``solver/pcg_lm.fused_lm_solve``);
+  * a larger graph that does not band, below ``f64_schur_above`` nodes →
+    the PCG LM;
   * anything else raises ``NotImplementedError`` naming the ROADMAP item
     that ports it.
 Both LM routes launch their CUDA kernel on ``cuda`` and run its plain
@@ -38,6 +44,10 @@ from tpu_slam_torch.solver.lm import (  # noqa: F401  (the reference's names)
     pack,
 )
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve
+
+# the fused LM's one-hot cap on (nodes × edges), rounded up to 256 each
+# (tpu_slam/solver/pallas_lm.py MAX_ONEHOT_ELEMS)
+MAX_ONEHOT_ELEMS = 3_200_000
 
 # graph topology (banded.spec_cache_key) → RCM band spec, or None where the
 # graph does not band; the reference keeps the same cache (_CR_SPEC_CACHE)
@@ -94,6 +104,60 @@ def _dense_lm(p0, ei, ej, means, infos, free, lam0, iters, sq_min_delta):
         p0, lambda p: graph_cost(p, ei, ej, means, infos), step, wrap, lam0,
         iters, sq_min_delta)
     return pack(p.T, cost0, cost, good, it)
+
+
+_UNPORTED = {
+    "schur": "the Schur-complement solve is not ported yet (ROADMAP queue 1, "
+             "item 13)",
+    "host_f64": "graph does not band: the host f64 sparse-direct LM "
+                "(_host_direct_lm) is not ported yet (ROADMAP queue 1, item 5)",
+    "cg_restarts": "restarted CG (cg_restarts > 1) is not ported yet (ROADMAP "
+                   "queue 1, item 5)",
+}
+
+
+def _bucket(n: int) -> int:
+    """The reference's power-of-two shape bucket, from 16."""
+    b = 16
+    while b < n:
+        b *= 2
+    return b
+
+
+def _fused_shapes_fit(num_nodes: int, num_edges: int) -> bool:
+    """The reference's shape test for its fused LM
+    (``tpu_slam/solver/pose_graph.py:1017-1020``): nodes and edges rounded
+    up to 256 may not pass their power-of-two buckets, and their product
+    may not pass the kernel's one-hot cap."""
+    M, E = max(num_nodes, 2), max(num_edges, 1)
+    Mf, Ef = -(-M // 256) * 256, -(-E // 256) * 256
+    return Mf <= _bucket(M) and Ef <= _bucket(E) and Mf * Ef <= MAX_ONEHOT_ELEMS
+
+
+def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
+           band_spec=lambda: None) -> str:
+    """The solve route of a graph of ``num_nodes`` nodes and ``num_edges``
+    edges on ``device``: "dense", "pcg" or "direct", or the name of an
+    unported route ("schur", "host_f64", "cg_restarts"). ``band_spec()`` is
+    called only for a graph above ``use_dense_below`` and says whether it
+    bands (None: it does not). Small graphs follow the reference's TPU
+    conditions for its fused kernel (``tpu_slam/solver/pose_graph.py:
+    1008-1030``) on ``cuda``."""
+    if num_nodes <= cfg.use_dense_below:
+        kernel = (torch.device(device).type == "cuda"
+                  and cfg.use_fused_kernel and cfg.cg_restarts <= 1
+                  and not cfg.use_schur
+                  and _fused_shapes_fit(num_nodes, num_edges))
+        return "pcg" if kernel else "dense"
+    if cfg.use_schur:
+        return "schur"
+    if cfg.use_direct and band_spec() is not None:
+        return "direct"
+    if cfg.f64_schur_above > 0 and num_nodes >= cfg.f64_schur_above:
+        return "host_f64"
+    if cfg.cg_restarts > 1:
+        return "cg_restarts"
+    return "pcg"
 
 
 class SolveStats(NamedTuple):
@@ -199,29 +263,16 @@ class PoseGraphSolver:
     def compute_async(self, max_iterations: int | None = None):
         """Dispatch the LM solve. The kernel routes return as soon as the
         kernel is enqueued; ``harvest()`` fetches the result."""
-        cfg = self.cfg
-        iters = max_iterations or cfg.max_iterations
-        if self.num_nodes <= cfg.use_dense_below:
+        iters = max_iterations or self.cfg.max_iterations
+        route = _route(self.num_nodes, self.num_edges, self.device,
+                       self.cfg, self._band_spec)
+        if route == "dense":
             return self._compute_dense(iters)
-        if cfg.use_schur:
-            raise NotImplementedError(
-                "the Schur-complement solve is not ported yet (ROADMAP "
-                "queue 1, item 13)"
-            )
-        spec = self._band_spec() if cfg.use_direct else None
-        if spec is not None:
-            return self._compute_direct(iters, spec)
-        if cfg.f64_schur_above > 0 and self.num_nodes >= cfg.f64_schur_above:
-            raise NotImplementedError(
-                "graph does not band: the host f64 sparse-direct LM "
-                "(_host_direct_lm) is not ported yet (ROADMAP queue 1, item 5)"
-            )
-        if cfg.cg_restarts > 1:
-            raise NotImplementedError(
-                "restarted CG (cg_restarts > 1) is not ported yet (ROADMAP "
-                "queue 1, item 5)"
-            )
-        return self._compute_pcg(iters)
+        if route == "pcg":
+            return self._compute_pcg(iters)
+        if route == "direct":
+            return self._compute_direct(iters, self._band_spec())
+        raise NotImplementedError(_UNPORTED[route])
 
     def _edge_arrays(self):
         """(ei, ej, means, infos) of the edges, built once per edge set."""
