@@ -6,7 +6,7 @@ the GPU.
 Needs one CUDA card, ``nvcc`` and the repository's sources; imports no JAX
 and nothing of the JAX package. Phases, each printing its own line(s):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the four kernels from ``tpu_slam_torch/csrc``, one nvcc per
+  2. build: the six kernels from ``tpu_slam_torch/csrc``, one nvcc per
      source, all started together;
   3. the PL-ICP kernel against its plain version on 512 scan pairs of 360
      beams (the bench PL-ICP batch), with both times;
@@ -57,14 +57,39 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      dense LM and no LM kernel: the graphs (≤ 126 nodes, 127 edges) fail
      the reference's shape test for its fused LM, as on its TPU. The ATE
      must stay ≤ 0.01 m; then its scans/s (median of 3 runs after the
-     warm one),
-     the stage timer, and one run under ``torch.profiler``;
- 15. one JSON line with every kernel (its launches, error against its
+     counted one, which warms it), the stage timer, and one run under
+     ``torch.profiler``;
+ 15. the NN kernel against its plain version
+     (``ops/matching.nearest_neighbor_direct``), bit for bit in indices
+     and distances, at the odometry's shape (1 × 360 × 360) and the
+     scan-matching batch's (120 × 360 × 360), with both times and the
+     bound, then on edge cases (N ≠ M with odd counts, N = 1, M = 4,096
+     over 4 source tiles, no valid target, duplicated targets, sources far
+     outside);
+ 16. the lesson main paths over examples/run_plicp_odometry.py's 200
+     scans at 360 beams, each with the launch counters zeroed first:
+     ``ICPOdometry.run``, ``PLICPOdometry.run`` and ``ScanMatchPLICP.run``.
+     Every NN call must launch the NN kernel (199 × 20, 199 × 10 and
+     199 × 10), each ATE stay ≤ 1.1 × the reference's CPU run + 1 mm, and
+     PLICPOdometry's keyframes within ±1 of the reference's; then each
+     one's scans/s and a run of its first 50 scans under
+     ``torch.profiler``;
+ 17. examples/run_scan_matching.py's 120 pairs in one batch, counters
+     zeroed before each: ``icp_match`` (20 NN launches),
+     ``plicp_match_batch`` (10) and the point-to-point ``_match_fn`` (10),
+     each delta RMSE within the same slack of the reference's;
+ 18. examples/run_lidar_undistortion.py's 80 scans: the corrected and raw
+     endpoint errors, PL-ICP deltas on corrected against raw points (the
+     corrected must win), and the correction's wall per scan;
+ 19. examples/run_feature_detection.py's 120 scans: the card's corner
+     masks equal the CPU's, the mean count within 0.5% of the reference's;
+ 20. one JSON line with every kernel (its launches, error against its
      plain version, both times, and its bound: the larger of bytes over
      3.35 TB/s and operations over 67 T/s in float32, or 16.7 T/s for the
      correlative kernel's int32 adds), then ``{"ok": true, ...}`` last.
 Any failing phase raises: the script then exits non-zero and never prints
-the ok line. Without a CUDA device it raises at phase 1.
+the ok line. Without a CUDA device it raises at phase 1. A ``[time]`` line
+after each group of phases gives its wall and the running total.
 """
 
 from __future__ import annotations
@@ -72,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import time
 
@@ -87,18 +113,30 @@ from tpu_slam_torch.data import simulator as sim
 from tpu_slam_torch.data.scan import Scan, index_scan, make_scan
 from tpu_slam_torch.models import offline
 from tpu_slam_torch.models.hector_slam import HectorSLAM, _beams
+from tpu_slam_torch.models.icp_odometry import ICPOdometry
 from tpu_slam_torch.models.karto.pipeline import KartoSLAM
 from tpu_slam_torch.models.offline import offline_slam
+from tpu_slam_torch.models.plicp_odometry import (
+    PLICPOdometry, plicp_match_batch,
+)
+from tpu_slam_torch.models.scan_match_plicp import ScanMatchPLICP
 from tpu_slam_torch.ops import correlative as corr
 from tpu_slam_torch.ops import gridmap as gm
 from tpu_slam_torch.ops import hector as hec
 from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
 from tpu_slam_torch.ops.cuda.hector_fused import hector_match_fused
+from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
+from tpu_slam_torch.ops.features import extract_corner_features
+from tpu_slam_torch.ops.icp import icp_match
+from tpu_slam_torch.ops.matching import (
+    nearest_neighbor, nearest_neighbor_direct,
+)
 from tpu_slam_torch.ops.plicp import plicp_match
+from tpu_slam_torch.ops.undistort import undistort_scan
 from tpu_slam_torch.parallel.distributed_step import (
-    _chain_matcher, _gather_scan, _loop_selector, make_chain_matcher,
-    make_loop_selector,
+    _chain_matcher, _gather_scan, _loop_selector, _match_fn,
+    make_chain_matcher, make_loop_selector,
 )
 from tpu_slam_torch.solver import banded
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
@@ -126,6 +164,27 @@ HECTOR_SCANS = 150  # examples/run_hector_slam.py
 KARTO_ATE_MAX = 0.01  # m
 # the reference's run of the Karto recipe at the full width on the CPU
 KARTO_REF = {"accepted": 126, "closures": 2, "ate": 0.00577}
+# the lesson front-ends: examples/run_plicp_odometry.py's recipe (200 scans
+# of 360 beams), and the reference's CPU runs of it (tpu_slam on the CPU,
+# whose NN takes the expanded form; reproduced by the slow test
+# tests/test_torch_odometry.py::test_chip_smoke_references_are_the_reference_runs):
+# each model's ATE (m), and the scan indices at which PLICPOdometry took a
+# keyframe (every second scan)
+LESSON_SCANS = 200
+LESSON_PROFILE_SCANS = 50  # the profiled window of each model's run
+LESSON_REF = {"icp": 0.18175, "plicp": 0.000863, "scan_match": 0.003486}
+LESSON_REF_KEYFRAMES = list(range(2, 199, 2))
+# the kernel's direct differences can split a near-tie that the expanded
+# form decides the other way: each ATE may grow by 10% and 1 mm
+LESSON_ATE_SLACK = (1.1, 0.001)
+# examples/run_scan_matching.py's 120 pairs on the reference's CPU: delta
+# RMSE (m, rad) of point-to-point ICP, PL-ICP and point-to-point PL-ICP
+SCAN_MATCH_REF = {"icp": (0.005188, 0.007105), "plicp": (0.0004323, 0.0001208),
+                  "p2p": (0.006319, 0.008753)}
+# examples/run_feature_detection.py's 120 scans on the reference's CPU:
+# 10,895 corners, 90.79 per scan
+FEATURES_REF_MEAN = 10895 / 120
+FEATURES_MEAN_RTOL = 0.005
 # the least time the card could take: published H100 SXM peaks
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -156,6 +215,12 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def plain_plicp(*args, **kw):
+    """``plicp_match`` as the PL-ICP kernel's plain version: with the plain
+    nearest neighbour, so that it launches no kernel."""
+    return plicp_match(*args, nn=nearest_neighbor, **kw)
 
 
 def phase_device() -> str:
@@ -196,7 +261,7 @@ def phase_plicp(dev) -> dict:
         return plicp_match_fused(*args, cfg.plicp, init_pose=g)
 
     def plain():
-        return plicp_match(*args, cfg.plicp, init_pose=g)
+        return plain_plicp(*args, cfg.plicp, init_pose=g)
 
     k, p = kern(), plain()
     torch.cuda.synchronize()
@@ -228,7 +293,7 @@ def plicp_rounds(args, pcfg, g) -> torch.Tensor:
                         dtype=torch.int64, device=g.device)
     seen = torch.zeros_like(rounds, dtype=torch.bool)
     for k in range(1, pcfg.max_iterations + 1):
-        conv = plicp_match(*args, dataclasses.replace(pcfg, max_iterations=k),
+        conv = plain_plicp(*args, dataclasses.replace(pcfg, max_iterations=k),
                            init_pose=g).converged
         rounds = torch.where(conv & ~seen, k, rounds)
         seen |= conv
@@ -341,7 +406,7 @@ def phase_edge_cases(dev) -> None:
     src[1][~sv[1]] = float("inf")
     g = torch.zeros((B, 3), dtype=torch.float32, device=dev)
     k = plicp_match_fused(src, sv, tgt, tv, cfg.plicp, init_pose=g)
-    p = plicp_match(src, sv, tgt, tv, cfg.plicp, init_pose=g)
+    p = plain_plicp(src, sv, tgt, tv, cfg.plicp, init_pose=g)
     dpose = float((k.pose - p.pose).abs().max())
     dinl = int((k.num_inliers - p.num_inliers).abs().max())
     print(f"edge plicp: B={B} N={N} M={M} pose max|d|={dpose:.3e} inliers "
@@ -495,7 +560,7 @@ def f64_witness(cfg, kpose, ppose, sp, sv, tp, tv, g) -> str:
     split = torch.nonzero(pose_gap(kpose, ppose) > SPLIT_TOL)[:, 0]
     if not len(split):
         return f"no pair split by > {SPLIT_TOL:g}"
-    f64 = plicp_match(sp[split].double(), sv[split], tp[split].double(),
+    f64 = plain_plicp(sp[split].double(), sv[split], tp[split].double(),
                       tv[split], cfg.plicp, init_pose=g[split].double()).pose
     gk = pose_gap(kpose[split].double(), f64)
     gp = pose_gap(ppose[split].double(), f64)
@@ -513,7 +578,7 @@ def phase_mission_batches(cfg, T: int, batches) -> None:
     float64 as a witness (``f64_witness``)."""
 
     def plain_match(sp, sv, tp, tv, g):
-        return plicp_match(sp, sv, tp, tv, cfg.plicp, init_pose=g)
+        return plain_plicp(sp, sv, tp, tv, cfg.plicp, init_pose=g)
 
     def gathered(store, storev, dirs, si, ti):
         return (_gather_scan(store, si, dirs), storev[si].contiguous(),
@@ -555,7 +620,7 @@ def phase_mission_batches(cfg, T: int, batches) -> None:
     k, p = kern_l(*args), plain_l(*args)
     pairs = gathered(store, storev, dirs, si, ti)
     kp = plicp_match_fused(*pairs, cfg.plicp, init_pose=g)
-    pp = plicp_match(*pairs, cfg.plicp, init_pose=g)
+    pp = plain_plicp(*pairs, cfg.plicp, init_pose=g)
     torch.cuda.synchronize()
     acc_k, acc_p = k[:, 15] > 0.5, p[:, 15] > 0.5
     both = acc_k & acc_p
@@ -564,7 +629,7 @@ def phase_mission_batches(cfg, T: int, batches) -> None:
     derr = float((k[both, 3] - p[both, 3]).abs().max()) if both.any() else 0.0
     witness = f64_witness(cfg, kp.pose, pp.pose, *pairs, g)
     ms = cuda_ms(lambda: plicp_match_fused(*pairs, cfg.plicp, init_pose=g), 5)
-    plain_ms = cuda_ms(lambda: plicp_match(*pairs, cfg.plicp, init_pose=g), 2)
+    plain_ms = cuda_ms(lambda: plain_plicp(*pairs, cfg.plicp, init_pose=g), 2)
     inl_eq = float((kp.num_inliers == pp.num_inliers).float().mean())
     print(
         f"mission loop batch (round 0): Cp={Cp} S={S} pairs={Cp * S} accepted "
@@ -638,21 +703,23 @@ def phase_mission_rate(cfg, scans, odom) -> None:
 
 
 def device_profile(fn):
-    """Run ``fn`` once under ``torch.profiler``: (wall µs, device busy µs
-    as the union of the kernel intervals, {kernel: (launches, device
-    µs)}), each hand-written kernel by name and the rest as "other"."""
+    """Run ``fn`` once under ``torch.profiler``, tracing the card alone (a
+    host trace of every small op costs more to record and read than the
+    run): (wall µs, device busy µs as the union of the kernel intervals,
+    {kernel: (launches, device µs)}), each hand-written kernel by name and
+    the rest as "other"."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the raw events: FunctionEvent trees would take minutes at ~10^5
     spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type.name == "CUDA" and e.time_range.elapsed_us() > 0)
+        (e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type().name == "CUDA" and e.duration_ns() > 0)
     busy, end = 0.0, -np.inf
     for s, e, _name in spans:  # union of the kernel intervals
         if e > end:
@@ -660,8 +727,9 @@ def device_profile(fn):
             end = e
     per = {}
     for s, e, name in spans:
-        key = next((k for k in _dispatch.LAUNCHES if f"{k}_kernel" in name),
-                   "other")
+        # a whole word, so that e.g. a library's "..._NN_kernel" is not "nn"
+        key = next((k for k in _dispatch.LAUNCHES
+                    if re.search(rf"(^|\W){k}_kernel\b", name)), "other")
         n, us = per.get(key, (0, 0.0))
         per[key] = (n + 1, us + e - s)
     return wall_us, busy, per
@@ -1238,10 +1306,11 @@ def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
                              "the reference's do on its TPU at this size")
     print("karto stage timer (counted run):\n" + slam.timer.report(),
           flush=True)
-    walls = [karto_run(cfg, scans, odom, dev)[2] for _ in range(4)]
-    rates = sorted(T / w for w in walls[1:])
+    # the counted run warmed the path: 3 timed runs follow it
+    walls = [karto_run(cfg, scans, odom, dev)[2] for _ in range(3)]
+    rates = sorted(T / w for w in walls)
     print(f"karto: scans/s median {rates[1]:.1f} (min {rates[0]:.1f} max "
-          f"{rates[2]:.1f}) over 3 runs after the warm one, {T} scans "
+          f"{rates[2]:.1f}) over 3 runs after the counted one, {T} scans "
           f"offered per run", flush=True)
     wall_us, busy, per = device_profile(
         lambda: karto_run(cfg, scans, odom, dev))
@@ -1250,26 +1319,453 @@ def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
     return launches
 
 
+# --- the lesson front-ends and the NN kernel ------------------------------
+
+
+def masked_pairs(scans):
+    """Consecutive pairs of a scan batch as the matchers take them: (src,
+    src_valid, tgt, tgt_valid), invalid points at 0, each contiguous."""
+    pts = torch.where(scans.valid[..., None], scans.points(), 0.0)
+    return (pts[1:].contiguous(), scans.valid[1:].contiguous(),
+            pts[:-1].contiguous(), scans.valid[:-1].contiguous())
+
+
+def lesson_recipe(dev, n: int = LESSON_SCANS):
+    """examples/run_plicp_odometry.py's recipe at the full
+    ``default_config()`` (360 beams): an office circle of ``n`` scans
+    (radius 1.6 m, 0.6 rad/s) in office_world(seed=21) with the path kept
+    clear, noise 0.004, seed 4; (cfg, scans on ``dev``, true poses)."""
+    cfg = default_config()
+    traj = sim.circle_trajectory(n, radius=1.6, angular_rate=0.6)
+    world = sim.office_world(seed=21, clear_path=traj)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
+                                seed=4)
+    scans = make_scan(seq.ranges, cfg.scan,
+                      stamp=seq.stamps.astype(np.float32), device=dev)
+    return cfg, scans, seq.gt_poses
+
+
+def scan_matching_recipe(dev, B: int = 120):
+    """examples/run_scan_matching.py's recipe: B consecutive pairs of an
+    office circle (office_world(seed=11), radius 1.6 m, 0.6 rad/s, noise
+    0.004, seed 4); (cfg, the pairs on ``dev``, the true deltas (B, 3))."""
+    cfg = default_config()
+    traj = sim.circle_trajectory(B + 1, radius=1.6, angular_rate=0.6)
+    world = sim.office_world(seed=11, clear_path=traj)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
+                                seed=4)
+    scans = make_scan(seq.ranges, cfg.scan, device=dev)
+    return cfg, masked_pairs(scans), gnp.relative(seq.gt_poses[:-1],
+                                                  seq.gt_poses[1:])
+
+
+def nn_bound(B: int, N: int, M: int) -> dict:
+    """The NN's least time: each input read once (8 bytes a point, 1 a
+    target flag), each output written once (an 8-byte index and a 4-byte
+    d2), and 6 float32 operations per source-target pair (two
+    differences, a product, an fma, the penalty's add, the compare)."""
+    return bound(B * (8 * N + 9 * M + 12 * N), 6.0 * B * N * M)
+
+
+def nn_compare(label, src, tgt, tv, reps=None) -> dict:
+    """The NN kernel against its plain version, equal bit for bit in idx
+    and d2; with ``reps``, both times from CUDA events, and
+    ``torch.cdist(...).min(-1)``'s for information (it ignores the flags,
+    so it is no library time of this function). Returns (the numbers of
+    the kernels line, the kernel's indices)."""
+
+    def kern():
+        return nearest_neighbor_cuda(src, tgt, tv)
+
+    def plain():
+        return nearest_neighbor_direct(src, tgt, tv)
+
+    (ki, kd), (pi, pd) = kern(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(ki, pi) and torch.equal(kd.view(torch.int32),
+                                                pd.view(torch.int32))
+    B, N, _ = src.shape
+    M = tgt.shape[1]
+    work = nn_bound(B, N, M)
+    times = "not timed"
+    out = {"max_abs_err": float((kd.double() - pd.double()).abs().max()),
+           "ms": None, "plain_ms": None, **work}
+    if reps:
+        out["ms"], out["plain_ms"] = cuda_ms(kern, reps[0]), cuda_ms(plain,
+                                                                     reps[1])
+        cdist_ms = cuda_ms(lambda: torch.cdist(src, tgt).min(-1), reps[0])
+        times = (f"kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+                 f"(cdist+min {cdist_ms:.4f} ms, for information)")
+    print(f"{label}: B={B} N={N} M={M} valid targets {int(tv.sum())} "
+          f"idx and d2 bit-equal {same} d2 max {float(kd.max()):.6g}; "
+          f"{times} bound {work['bound_ms']:.6f} ms ({work['bound_by']})",
+          flush=True)
+    if not same or ki.shape != (B, N):
+        raise AssertionError(f"{label}: the NN kernel disagrees with its "
+                             "plain version")
+    return out, ki
+
+
+def phase_nn(dev) -> dict:
+    """The NN kernel against ``nearest_neighbor_direct`` at the odometry's
+    shape (1, 360, 360), the scan-matching batch's (120, 360, 360), and
+    off them: N ≠ M with odd counts, N = 1, M = 4,096 over four source
+    tiles, no valid target, duplicated targets, sources far outside.
+    Returns the odometry shape's numbers."""
+    _c, scans, _g = lesson_recipe(dev, 2)
+    src, _sv, tgt, tv = masked_pairs(scans)
+    odo, _i = nn_compare("nn odometry", src, tgt, tv, reps=(500, 50))
+    _c, (bs, _bsv, bt, btv), _g = scan_matching_recipe(dev)
+    nn_compare("nn scan-matching batch", bs, bt, btv, reps=(50, 5))
+    g = torch.Generator().manual_seed(5)
+
+    def pts(*shape, scale=3.0):
+        return (torch.randn(*shape, 2, generator=g) * scale).to(dev)
+
+    def flags(*shape):
+        return (torch.rand(*shape, generator=g) < 0.8).to(dev)
+
+    nn_compare("edge nn N != M, odd counts", pts(3, 101), pts(3, 77),
+               flags(3, 77))
+    nn_compare("edge nn N = 1", pts(4, 1), pts(4, 360), flags(4, 360))
+    nn_compare("edge nn M = 4,096, 4 source tiles", pts(2, 1000),
+               pts(2, 4096, scale=10.0), flags(2, 4096))
+    # no valid target: d2 = fl(d + 1e12), whose ulp (65,536) swallows the
+    # differences between near targets, so near sources tie at index 0;
+    # sources 3 km out still tell targets 30 m apart
+    far = pts(2, 360)
+    far[:, :180] += 3000.0
+    _o, idx = nn_compare("edge nn no valid target", far,
+                         pts(2, 360, scale=10.0),
+                         torch.zeros((2, 360), dtype=torch.bool, device=dev))
+    print(f"edge nn no valid target: index 0 for {int((idx == 0).sum())} "
+          f"of {idx.numel()} sources", flush=True)
+    # duplicated targets: three copies of 60 points; the first copy wins
+    base = torch.round(pts(2, 60))
+    sources = torch.round(pts(2, 90) * 2) / 2
+    _o, idx = nn_compare("edge nn duplicated targets", sources,
+                         torch.cat([base] * 3, dim=1).contiguous(),
+                         torch.ones((2, 180), dtype=torch.bool, device=dev))
+    if int(idx.max()) >= 60:
+        raise AssertionError("duplicated targets: a later copy won")
+    nn_compare("edge nn sources far outside", pts(2, 64) + 5e3, pts(2, 300),
+               flags(2, 300))
+    return odo
+
+
+def keyframe_steps(model) -> list:
+    """Record the scan index of every keyframe switch of a PLICPOdometry."""
+    steps, decide, count = [], model._new_keyframe_needed, [0]
+
+    def recording(d_base):
+        count[0] += 1
+        out = decide(d_base)
+        if out:
+            steps.append(count[0])
+        return out
+
+    model._new_keyframe_needed = recording
+    return steps
+
+
+def lesson_run(model, scans):
+    est = model.run(scans)
+    torch.cuda.synchronize()
+    return est
+
+
+def phase_lesson_main(dev) -> int:
+    """The lesson main paths, each with the launch counters zeroed first:
+    ``ICPOdometry.run``, ``PLICPOdometry.run`` and ``ScanMatchPLICP.run``
+    over the recipe's 200 scans. Every NN call must launch the kernel
+    (199 × 20, 199 × 10 and 199 × 10), each ATE stay within the slack of
+    the reference's, and the keyframe count within ±1 of the reference's;
+    then each model's scans/s (median of 3 runs after the counted one,
+    which warms it) and one run of the first ``LESSON_PROFILE_SCANS``
+    under ``torch.profiler`` (its teardown takes several times the run's
+    wall at the ~2,300 kernels a scan of PL-ICP launches). Returns the NN launches of the three
+    counted runs."""
+    cfg, scans, gt = lesson_recipe(dev)
+    T = len(gt)
+    window = index_scan(scans, slice(0, LESSON_PROFILE_SCANS))
+    models = {
+        "icp": (lambda: ICPOdometry(cfg, device=dev),
+                cfg.icp.max_iterations),
+        "plicp": (lambda: PLICPOdometry(cfg, device=dev),
+                  cfg.plicp.max_iterations),
+        "scan_match": (lambda: ScanMatchPLICP(cfg, device=dev),
+                       cfg.plicp.max_iterations),
+    }
+    total = 0
+    for name, (make, rounds) in models.items():
+        model = make()
+        kf = keyframe_steps(model) if name == "plicp" else None
+        _dispatch.reset_launches()
+        est = lesson_run(model, scans)
+        launches = dict(_dispatch.LAUNCHES)
+        ate = float(ate_rmse(est, gt))
+        limit = LESSON_ATE_SLACK[0] * LESSON_REF[name] + LESSON_ATE_SLACK[1]
+        extra = ""
+        if kf is not None:
+            differ = sorted(set(kf) ^ set(LESSON_REF_KEYFRAMES))
+            extra = (f" keyframes {len(kf)} (reference "
+                     f"{len(LESSON_REF_KEYFRAMES)}; steps that differ: "
+                     f"{differ})")
+        print(f"lesson {name} main path: scans={T} ATE {ate:.6f} m "
+              f"(reference {LESSON_REF[name]} m, limit {limit:.6f}){extra}; "
+              f"launches {launches}", flush=True)
+        if est.shape != (T, 3) or not np.all(np.isfinite(est)):
+            raise AssertionError(f"lesson {name}: poses not finite (T, 3)")
+        if ate > limit:
+            raise AssertionError(f"lesson {name}: ATE {ate:.6f} > {limit:.6f}")
+        others = {k: v for k, v in launches.items() if k != "nn" and v}
+        if launches["nn"] != (T - 1) * rounds or others:
+            raise AssertionError(f"lesson {name}: not every NN call launched "
+                                 f"the NN kernel, or another kernel ran")
+        if kf is not None and abs(len(kf) - len(LESSON_REF_KEYFRAMES)) > 1:
+            raise AssertionError("PLICPOdometry's keyframes differ by > 1")
+        total += launches["nn"]
+        walls = []
+        for _ in range(3):  # the counted run was the warm one
+            t0 = time.perf_counter()
+            lesson_run(make(), scans)
+            walls.append(time.perf_counter() - t0)
+        rates = sorted(T / w for w in walls)
+        print(f"lesson {name}: scans/s median {rates[1]:.1f} (min "
+              f"{rates[0]:.1f} max {rates[2]:.1f}) over 3 runs after the "
+              f"counted one", flush=True)
+        prof = device_profile(lambda: lesson_run(make(), window))
+        print(profile_line(f"lesson {name} run, first {LESSON_PROFILE_SCANS} "
+                           "scans", *prof), flush=True)
+    return total
+
+
+def delta_rmse(est: np.ndarray, gt: np.ndarray) -> tuple:
+    err = est.astype(np.float64) - gt
+    err[:, 2] = np.arctan2(np.sin(err[:, 2]), np.cos(err[:, 2]))
+    return (float(np.sqrt((err[:, :2] ** 2).mean())),
+            float(np.sqrt((err[:, 2] ** 2).mean())))
+
+
+def phase_scan_matching(dev) -> int:
+    """examples/run_scan_matching.py's 120 pairs in one batch, each matcher
+    with the counters zeroed first: ``icp_match`` (20 NN launches),
+    ``plicp_match_batch`` (10) and the point-to-point ``_match_fn`` (10,
+    the repaired route); the delta RMSE of each against ground truth,
+    within the slack of the reference's. Returns the NN launches."""
+    cfg, pairs, gt = scan_matching_recipe(dev)
+    B = gt.shape[0]
+    g = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    p2p = dataclasses.replace(cfg, plicp=dataclasses.replace(
+        cfg.plicp, use_point_to_line_distance=False))
+    runs = {
+        "icp": (lambda: icp_match(*pairs, cfg.icp)[0],
+                cfg.icp.max_iterations),
+        "plicp": (lambda: plicp_match_batch(cfg)(*pairs, g).pose,
+                  cfg.plicp.max_iterations),
+        "p2p": (lambda: _match_fn(p2p)(*pairs, g).pose,
+                cfg.plicp.max_iterations),
+    }
+    total = 0
+    for name, (fn, rounds) in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        est = fn().cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches = dict(_dispatch.LAUNCHES)
+        rt, rr = delta_rmse(est, gt)
+        ref_t, ref_r = SCAN_MATCH_REF[name]
+        lim_t, lim_r = (LESSON_ATE_SLACK[0] * x + LESSON_ATE_SLACK[1]
+                        for x in (ref_t, ref_r))
+        print(f"scan matching {name}: {B} pairs in one batch, wall "
+              f"{wall * 1e3:.2f} ms ({wall * 1e3 / B:.3f} ms/pair); delta "
+              f"RMSE {rt:.6f} m {rr:.6f} rad (reference {ref_t} m {ref_r} "
+              f"rad); launches {launches}", flush=True)
+        others = {k: v for k, v in launches.items() if k != "nn" and v}
+        if launches["nn"] != rounds or others:
+            raise AssertionError(f"scan matching {name}: the NN kernel did "
+                                 "not carry every round")
+        if not (np.all(np.isfinite(est)) and rt <= lim_t and rr <= lim_r):
+            raise AssertionError(f"scan matching {name}: deltas off")
+        total += launches["nn"]
+    return total
+
+
+def undistortion_recipe(dev):
+    """examples/run_lidar_undistortion.py's recipe: 80 rolling-shutter scans
+    of 360 beams on an office circle (radius 1.2 m, 2.0 rad/s,
+    office_world(seed=21)), no noise, seed 3, IMU at 500 Hz and odometry
+    at 200 Hz; (cfg, scans and the four streams on ``dev``, the sequence)."""
+    cfg = default_config()
+    traj = sim.circle_trajectory(80, radius=1.2, angular_rate=2.0)
+    world = sim.office_world(seed=21, clear_path=traj)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.0, seed=3,
+                                motion_distortion=True, imu_rate_hz=500.0,
+                                odom_rate_hz=200.0)
+    scans = make_scan(seq.ranges, cfg.scan,
+                      stamp=seq.stamps.astype(np.float32), device=dev)
+    streams = tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                    for a in (seq.imu_stamps, seq.imu_omega, seq.odom_stamps,
+                              seq.odom_poses))
+    return cfg, scans, streams, seq
+
+
+def first_beam_truth(cfg, raw: torch.Tensor, seq) -> np.ndarray:
+    """The example's ground truth for all scans but the last: each beam's
+    world endpoint from its own interpolated true pose, in the frame of
+    the first beam; (T - 1, N, 2). ``raw`` holds the laser points on the
+    CPU."""
+    n = cfg.scan.num_beams
+    out = []
+    for t in range(raw.shape[0] - 1):
+        bt = seq.stamps[t] + cfg.scan.scan_period / n * np.arange(n)
+        i = np.clip(np.searchsorted(seq.stamps, bt, side="right") - 1, 0,
+                    len(seq.stamps) - 2)
+        alpha = (bt - seq.stamps[i]) / cfg.scan.scan_period
+        poses = geo.interpolate(
+            *(torch.as_tensor(np.asarray(a, np.float32))
+              for a in (seq.gt_poses[i], seq.gt_poses[i + 1], alpha)))
+        world = geo.apply(poses, raw[t][:, None, :])[:, 0, :]
+        out.append(geo.apply(geo.inverse(poses[0]), world))
+    return torch.stack(out).numpy()
+
+
+def phase_undistortion(dev) -> int:
+    """Undistortion feeding the matcher, with the counters zeroed first:
+    the 80 scans corrected in one call, the corrected-against-raw endpoint
+    error (the example's check: < 0.25), PL-ICP deltas on the corrected
+    and on the raw points (tests/test_undistort.py's check: rotation < 0.5
+    and translation < 0.7 of the raw ones), and the correction's wall per
+    scan (median of 3 after a warm one). Returns the NN launches."""
+    cfg, scans, streams, seq = undistortion_recipe(dev)
+    T = scans.ranges.shape[0]
+    _dispatch.reset_launches()
+    cor = undistort_scan(scans, *streams)
+    raw_pts = torch.where(scans.valid[..., None], scans.points(), 0.0)
+    gt_d = gnp.relative(seq.gt_poses[:-1], seq.gt_poses[1:])
+    v = scans.valid
+
+    def deltas(p):
+        return delta_rmse(plicp_match(p[1:], v[1:], p[:-1], v[:-1],
+                                      cfg.plicp).pose.cpu().numpy(), gt_d)
+
+    (raw_t, raw_r), (cor_t, cor_r) = deltas(raw_pts), deltas(cor)
+    torch.cuda.synchronize()
+    launches = dict(_dispatch.LAUNCHES)
+    truth = first_beam_truth(cfg, scans.points().cpu(), seq)
+    m = v.cpu().numpy()[:-1]
+    raw_err = np.linalg.norm(scans.points().cpu().numpy()[:-1] - truth,
+                             axis=-1)[m].mean()
+    cor_err = np.linalg.norm(cor.cpu().numpy()[:-1] - truth, axis=-1)[m].mean()
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        undistort_scan(scans, *streams)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ms = sorted(walls[1:])[1] * 1e3
+    print(f"undistortion: {T} scans, endpoint error raw {raw_err:.5f} m "
+          f"corrected {cor_err:.5f} m (ratio {cor_err / raw_err:.4f}); PL-ICP "
+          f"delta RMSE raw {raw_t:.5f} m {raw_r:.5f} rad, corrected "
+          f"{cor_t:.5f} m {cor_r:.5f} rad; correction wall {ms:.3f} ms per "
+          f"batch, {ms / T:.4f} ms per scan; launches {launches}", flush=True)
+    if not cor_err < 0.25 * raw_err:
+        raise AssertionError("undistortion: the correction does not help")
+    if not (cor_r < 0.5 * raw_r and cor_t < 0.7 * raw_t):
+        raise AssertionError("undistortion: corrected deltas do not beat raw")
+    if launches["nn"] != 2 * cfg.plicp.max_iterations:
+        raise AssertionError("undistortion: the matcher's NN calls did not "
+                             "launch the kernel")
+    return launches["nn"]
+
+
+def phase_features(dev) -> None:
+    """examples/run_feature_detection.py's 120 scans in one call: the card's
+    corner masks equal the port's on the CPU, the mean count per scan is
+    within 0.5% of the reference's CPU run, and the call's wall per scan
+    (median of 3 after a warm one)."""
+    cfg = default_config()
+    traj = sim.circle_trajectory(120, radius=1.6, angular_rate=0.5)
+    world = sim.office_world(seed=9, clear_path=traj)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.003,
+                                seed=2)
+    scans = make_scan(seq.ranges, cfg.scan, device=dev)
+    mask = extract_corner_features(scans, cfg.features)
+    host = extract_corner_features(make_scan(seq.ranges, cfg.scan,
+                                             device="cpu"), cfg.features)
+    same = torch.equal(mask.cpu(), host)
+    mean = float(mask.sum(-1).double().mean())
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        extract_corner_features(scans, cfg.features)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ms = sorted(walls[1:])[1] * 1e3
+    T = mask.shape[0]
+    print(f"features: {T} scans, corners per scan mean {mean:.3f} "
+          f"(reference {FEATURES_REF_MEAN:.3f}) min {int(mask.sum(-1).min())} "
+          f"max {int(mask.sum(-1).max())}; masks equal to the CPU's {same}; "
+          f"wall {ms:.3f} ms per batch, {ms * 1e3 / T:.1f} us per scan",
+          flush=True)
+    if not same:
+        raise AssertionError("features: the card's masks differ from the "
+                             "CPU's")
+    if abs(mean - FEATURES_REF_MEAN) > FEATURES_MEAN_RTOL * FEATURES_REF_MEAN:
+        raise AssertionError("features: mean count off the reference's")
+
+
+class PhaseClock:
+    """Prints the wall of each group of phases and the running total, so
+    that a run shows where its time limit goes."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - self.last:.1f} s ({now - self.start:.1f}"
+              f" s in all)", flush=True)
+        self.last = now
+
+
 def main() -> None:
+    clock = PhaseClock()
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    clock("device and build")
     plicp = phase_plicp(dev)
     cr = phase_cr(dev)
     phase_edge_cases(dev)
+    clock("PL-ICP, CR-LM and edge cases")
     cfg, scans, odom, res, launches, batches = phase_main_path(dev)
     phase_mission_batches(cfg, res.poses.shape[0], batches)
     pcg = phase_pcg(dev, res)
     phase_mission_rate(cfg, scans, odom)
     phase_profile(cfg, scans, odom)
+    clock("mission")
     hector = phase_hector(dev)
     phase_hector_edges(dev)
     hector_launches = phase_hector_main(dev)
+    clock("Hector")
     kcfg, kscans, kodom, kgt = karto_recipe(dev)
     resp, records, front = phase_correlative(dev, kcfg, kscans, kgt)
     phase_correlative_edges(dev, records, front)
     phase_karto_layers(dev, records)
+    clock("correlative kernel")
     karto_launches = phase_karto_main(dev, kcfg, kscans, kodom, kgt)
+    clock("online Karto")
+    nn = phase_nn(dev)
+    clock("NN kernel")
+    nn_launches = phase_lesson_main(dev)
+    clock("lesson odometry")
+    nn_launches += phase_scan_matching(dev)
+    nn_launches += phase_undistortion(dev)
+    phase_features(dev)
+    clock("scan matching, undistortion, features")
     kernels = [
         {"name": "plicp_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/plicp_fused.cu",
@@ -1291,6 +1787,9 @@ def main() -> None:
          "source": "tpu_slam_torch/csrc/correlative_response.cu",
          "replaces": "tpu_slam/ops/pallas/correlative_response.py:160",
          "launches": karto_launches["correlative_response"], **resp},
+        {"name": "nn", "route": "cuda", "source": "tpu_slam_torch/csrc/nn.cu",
+         "replaces": "tpu_slam/ops/pallas/nn.py:50",
+         "launches": nn_launches, **nn},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

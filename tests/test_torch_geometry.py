@@ -42,10 +42,45 @@ def test_binary_ops_match_reference(fn_name):
     _assert_pose_close(out, ref, 1e-5, 1e-6)
 
 
-@pytest.mark.parametrize("fn_name", ["inverse"])
+@pytest.mark.parametrize("fn_name", ["inverse", "log"])
 def test_unary_ops_match_reference(fn_name):
-    ref, out = _both(fn_name, _poses(2, (64,)))
+    p = _poses(2, (64,))
+    p[:4, 2] = [0.0, 3e-7, -5e-7, np.pi]  # the small-angle branch, and π
+    ref, out = _both(fn_name, p)
     _assert_pose_close(out, ref, 1e-5, 1e-6)
+
+
+def test_exp_matches_reference_and_inverts_log():
+    v = _poses(6, (64,))
+    v[:4, 2] = [0.0, 3e-7, -5e-7, 1.0]
+    ref, out = _both("exp", v)
+    _assert_pose_close(out, ref, 1e-5, 1e-6)
+    back = tgeo.log(tgeo.exp(torch.as_tensor(v))).numpy()
+    wrapped = v.copy()
+    wrapped[:, 2] = np.arctan2(np.sin(v[:, 2]), np.cos(v[:, 2]))
+    np.testing.assert_allclose(back, wrapped, atol=1e-4)
+
+
+def test_matrix_forms_match_reference():
+    p = _poses(7, (5, 4))
+    ref, out = _both("to_matrix", p)
+    assert out.shape == (5, 4, 3, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+    ref, out = _both("from_matrix", np.array(ref))
+    _assert_pose_close(out, ref, 1e-6, 1e-6)
+    _assert_pose_close(out, p, 1e-5, 1e-5)
+    ref, out = _both("rot2", p[..., 2])
+    assert out.shape == (5, 4, 2, 2)
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+
+
+def test_interpolate_matches_reference():
+    a, b = _poses(8, (64,)), _poses(9, (64,))
+    a[0, 2], b[0, 2] = 3.0, -3.0  # the short way through ±π
+    alpha = np.random.default_rng(10).uniform(0, 1, 64).astype(np.float32)
+    ref, out = _both("interpolate", a, b, alpha)
+    _assert_pose_close(out, ref, 1e-5, 1e-6)
+    assert abs(abs(float(out[0, 2])) - np.pi) < 0.3
 
 
 def test_normalize_angle_matches_reference():
@@ -97,3 +132,12 @@ def test_make_scan_matches_reference():
     v = out.valid.numpy()
     np.testing.assert_allclose(out.points().numpy()[v],
                                np.asarray(ref.points())[v], atol=1e-5)
+    np.testing.assert_allclose(out.beam_times().numpy(),
+                               np.asarray(ref.beam_times()), rtol=1e-7,
+                               atol=1e-7)
+    assert out.beam_times().shape == (6, 180)
+    mask = out.valid.clone()
+    mask[:, ::2] = False
+    rep = out.replace(valid=mask)
+    assert rep.valid is mask and rep.ranges is out.ranges
+    assert out.valid.sum() > rep.valid.sum()

@@ -53,7 +53,12 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.ops.correlative",
         "tpu_slam_torch.ops.cuda.correlative_response",
         "tpu_slam_torch.models.karto.pipeline", "tpu_slam_torch.utils.events",
-        "tpu_slam_torch.utils.checkpoint",
+        "tpu_slam_torch.utils.checkpoint", "tpu_slam_torch.ops.cuda.nn",
+        "tpu_slam_torch.ops.preprocess", "tpu_slam_torch.ops.icp",
+        "tpu_slam_torch.ops.undistort", "tpu_slam_torch.ops.features",
+        "tpu_slam_torch.models.icp_odometry",
+        "tpu_slam_torch.models.plicp_odometry",
+        "tpu_slam_torch.models.scan_match_plicp",
     }
     assert expected <= set(out["mods"])
 
@@ -62,13 +67,17 @@ def test_entry_points_default_to_the_card():
     from tpu_slam_torch import _dispatch, convert
     from tpu_slam_torch.data.scan import make_scan
     from tpu_slam_torch.models.hector_slam import HectorSLAM
+    from tpu_slam_torch.models.icp_odometry import ICPOdometry
     from tpu_slam_torch.models.karto.pipeline import DeviceScanStore, KartoSLAM
+    from tpu_slam_torch.models.plicp_odometry import PLICPOdometry
+    from tpu_slam_torch.models.scan_match_plicp import ScanMatchPLICP
     from tpu_slam_torch.ops.correlative import CorrelativeMatcher
     from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
 
     assert _dispatch.DEFAULT_DEVICE == "cuda"
     for fn in (PoseGraphSolver, make_scan, HectorSLAM, KartoSLAM,
                DeviceScanStore, CorrelativeMatcher, convert.scan_from_numpy,
-               convert.solver_from_numpy, convert.hector_state_from_numpy):
+               convert.solver_from_numpy, convert.hector_state_from_numpy,
+               ICPOdometry, PLICPOdometry, ScanMatchPLICP):
         default = inspect.signature(fn).parameters["device"].default
         assert default == _dispatch.DEFAULT_DEVICE, fn.__name__

@@ -61,6 +61,11 @@ SIGNATURES = {
         # stream
         [_VP] * 5 + [_I] * 9 + [_VP],
     ),
+    "nn": (
+        "nn_launch",
+        # src, tgt, tgt_valid, idx, d2, B, N, M, stream
+        [_VP] * 5 + [_I] * 3 + [_VP],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -8,10 +8,10 @@ replaces the JAX package's backend checks (``jax.default_backend() ==
 data decides, and there is no silent fallback from the kernel.
 
 ``DEFAULT_DEVICE`` is the device of every entry point that makes tensors
-(``PoseGraphSolver``, ``make_scan``, ``HectorSLAM``, ``KartoSLAM`` and
-the ``convert`` functions) unless the caller passes another: the card. A
-caller who wants the CPU passes ``device="cpu"``; nothing looks for a GPU
-and carries on without one.
+(``PoseGraphSolver``, ``make_scan``, ``HectorSLAM``, ``KartoSLAM``, the
+odometry models and the ``convert`` functions) unless the caller passes
+another: the card. A caller who wants the CPU passes ``device="cpu"``;
+nothing looks for a GPU and carries on without one.
 
 ``LAUNCHES`` holds one plain integer per kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
@@ -26,7 +26,7 @@ DEFAULT_DEVICE = "cuda"
 
 LAUNCHES: dict[str, int] = {
     "plicp_fused": 0, "cr_lm": 0, "pcg_lm": 0, "hector_fused": 0,
-    "correlative_response": 0,
+    "correlative_response": 0, "nn": 0,
 }
 
 

@@ -49,6 +49,16 @@ class Scan:
         y = self.ranges * torch.sin(self.angles)
         return torch.stack([x, y], dim=-1)
 
+    def beam_times(self) -> torch.Tensor:
+        """Per-beam absolute timestamps, (..., N)."""
+        idx = torch.arange(self.num_beams, dtype=self.ranges.dtype,
+                           device=self.ranges.device)
+        return self.stamp[..., None] + self.time_increment[..., None] * idx
+
+    def replace(self, **fields) -> "Scan":
+        """A copy with ``fields`` replaced (the reference's struct method)."""
+        return dataclasses.replace(self, **fields)
+
 
 def make_scan(
     ranges,

@@ -2,8 +2,9 @@
 ``tpu_slam/ops/pallas/plicp_fused.py::plicp_match_fused``.
 
 The kernel is ``csrc/plicp_fused.cu``; its plain PyTorch version is
-``ops/plicp.plicp_match``. Tensors on ``cuda`` launch the kernel, tensors on
-``cpu`` run the plain version (``_dispatch.route``). The covariance
+``ops/plicp.plicp_match`` with the plain ``nearest_neighbor``. Tensors on
+``cuda`` launch the kernel, tensors on ``cpu`` run the plain version
+(``_dispatch.route``). The covariance
 σ²·inv(H + 1e-6·I) is formed here from the kernel's H, outside the kernel,
 as in the reference.
 """
@@ -14,6 +15,7 @@ import torch
 
 from tpu_slam_torch import _build, _dispatch
 from tpu_slam_torch.config import PLICPConfig
+from tpu_slam_torch.ops.matching import nearest_neighbor
 from tpu_slam_torch.ops.plicp import PLICPResult, covariance_from_h, plicp_match
 
 MAX_BEAMS = 1024  # one thread per source beam
@@ -42,7 +44,7 @@ def plicp_match_fused(
     PLICPResult fields as ``ops/plicp.plicp_match``."""
     if _dispatch.route(src_pts) == "cpu":
         return plicp_match(src_pts, src_valid, tgt_pts, tgt_valid, cfg,
-                           init_pose=init_pose)
+                           init_pose=init_pose, nn=nearest_neighbor)
     if not cfg.use_point_to_line_distance:
         raise ValueError("the PL-ICP kernel implements the point-to-line form")
     B, N, _ = src_pts.shape

@@ -6,6 +6,11 @@ This is the plain PyTorch version of the PL-ICP kernel
 better of j1±1 as the second point, two masked-quantile trimming gates,
 and two Gauss-Newton steps on frozen correspondences; each pair freezes
 at its own epsilons.
+
+As in the reference, each round takes its correspondences from
+``nearest_neighbor_auto``: on ``cuda`` that launches the NN kernel. A
+caller that holds this function as the PL-ICP kernel's plain version
+passes ``nn=nearest_neighbor`` so that nothing in it launches a kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from tpu_slam_torch.config import PLICPConfig
 from tpu_slam_torch.ops.matching import (
     _take_rows,
     masked_quantiles,
-    nearest_neighbor,
+    nearest_neighbor_auto,
     second_point_on_segment,
 )
 
@@ -33,10 +38,10 @@ class PLICPResult(NamedTuple):
 
 
 def _correspondences(pose, src_pts, src_valid, tgt_pts, tgt_valid, cfg,
-                     point_to_line: bool):
+                     point_to_line: bool, nn):
     """One correspondence round → (src_w, q1, n, residual, gate)."""
     src_w = geo.apply(pose, src_pts)
-    j1, d2 = nearest_neighbor(src_w, tgt_pts, tgt_valid)
+    j1, d2 = nn(src_w, tgt_pts, tgt_valid)
     q1 = _take_rows(tgt_pts, j1)
     gate = src_valid & (d2 < cfg.max_correspondence_dist**2)
     gate &= torch.take_along_dim(tgt_valid, j1, dim=-1)
@@ -105,11 +110,13 @@ def plicp_match(
     tgt_valid: torch.Tensor,
     cfg: PLICPConfig,
     init_pose: torch.Tensor | None = None,
+    nn=nearest_neighbor_auto,
 ) -> PLICPResult:
     """Estimate T with T∘src ≈ tgt (CSM ``sm_icp`` semantics): src is the
     new scan, tgt the reference, the returned pose maps src into tgt's
     frame. Batched over leading axes; runs ``cfg.max_iterations`` rounds,
-    each pair freezing once its step is under the epsilons."""
+    each pair freezing once its step is under the epsilons. ``nn`` is the
+    correspondence search, (src, tgt, tgt_valid) → (idx, d2)."""
     if init_pose is None:
         init_pose = torch.zeros(
             src_pts.shape[:-2] + (3,), dtype=src_pts.dtype,
@@ -134,7 +141,7 @@ def plicp_match(
     H = torch.zeros(bshape + (3, 3), dtype=pose.dtype, device=pose.device)
     for _ in range(cfg.max_iterations):
         src_w, q1, n, resid, gate = _correspondences(
-            pose, src_pts, src_valid, tgt_pts, tgt_valid, cfg, p2l
+            pose, src_pts, src_valid, tgt_pts, tgt_valid, cfg, p2l, nn
         )
         w = _trim(resid, gate, cfg).to(src_pts.dtype)
         # two inner GN steps with frozen correspondences

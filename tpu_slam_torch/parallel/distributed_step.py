@@ -2,8 +2,10 @@
 ``tpu_slam/parallel/distributed_step.py``.
 
 Every factory returns a plain callable over tensors. The match runs the
-PL-ICP kernel when the tensors are on ``cuda`` and its plain version on
-``cpu`` (``_match_fn``). The mesh (sharded) forms are not ported.
+PL-ICP kernel (point-to-line) or the NN kernel in each round of
+``plicp_match`` (point-to-point) when the tensors are on ``cuda``, and
+the plain versions on ``cpu`` (``_match_fn``). The mesh (sharded) forms
+are not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from tpu_slam_torch import geometry as geo
 from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
+from tpu_slam_torch.ops.matching import nearest_neighbor_auto
 from tpu_slam_torch.ops.plicp import PLICPResult, plicp_match
 
 _MESH_MSG = ("the sharded matcher is not ported yet "
@@ -21,14 +24,16 @@ _MESH_MSG = ("the sharded matcher is not ported yet "
 
 def _match_fn(cfg: SLAMConfig):
     """The batched PL-ICP callable (sp, sv, tp, tv, guesses) → PLICPResult.
-    The point-to-line form goes through the kernel's wrapper; the
-    point-to-point form has no kernel in the reference either and runs
-    the plain version on any device."""
+    The point-to-line form goes through the PL-ICP kernel's wrapper. The
+    point-to-point form runs ``plicp_match``, as the reference does on its
+    TPU (``tpu_slam/parallel/distributed_step.py:304-305``): each round
+    takes its correspondences from ``nearest_neighbor_auto``, which
+    launches the NN kernel on ``cuda``."""
     if cfg.plicp.use_point_to_line_distance:
-        fn = plicp_match_fused
-    else:
-        fn = plicp_match
-    return lambda sp, sv, tp, tv, g: fn(sp, sv, tp, tv, cfg.plicp, init_pose=g)
+        return lambda sp, sv, tp, tv, g: plicp_match_fused(
+            sp, sv, tp, tv, cfg.plicp, init_pose=g)
+    return lambda sp, sv, tp, tv, g: plicp_match(
+        sp, sv, tp, tv, cfg.plicp, init_pose=g, nn=nearest_neighbor_auto)
 
 
 def _pack_result(r: PLICPResult) -> torch.Tensor:
