@@ -6,7 +6,7 @@ the GPU.
 Needs one CUDA card, ``nvcc`` and the repository's sources; imports no JAX
 and nothing of the JAX package. Phases, each printing its own line(s):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the six kernels from ``tpu_slam_torch/csrc``, one nvcc per
+  2. build: the seven kernels from ``tpu_slam_torch/csrc``, one nvcc per
      source, all started together;
   3. the PL-ICP kernel against its plain version on 512 scan pairs of 360
      beams (the bench PL-ICP batch), with both times;
@@ -83,13 +83,29 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      corrected must win), and the correction's wall per scan;
  19. examples/run_feature_detection.py's 120 scans: the card's corner
      masks equal the CPU's, the mean count within 0.5% of the reference's;
- 20. one JSON line with every kernel (its launches, error against its
+ 20. the streamed CR-LM kernel against its plain version on bench_solver's
+     rings of 4,096 and 16,384 nodes (K 1,024 and 4,096), then on edge
+     cases (W = 2, W = 8, 32,768 nodes), with both times, the kernels it
+     enqueues and the bound; then both CR-LM kernels on the same graphs
+     (the bench graph at K 256, a 3,072-node ring at K 512), with both
+     times;
+ 21. the large-graph main path, with the launch counters zeroed first:
+     ``PoseGraphSolver.compute`` on the 4,096- and 16,384-node rings, each
+     one streamed-kernel launch and no other, χ² → ~0; their solve ms
+     (median of 3 warm runs) and one solve under ``torch.profiler``;
+ 22. the host f64 arm: a 3,200-node skip-edge graph that does not band
+     solves on the host and launches nothing;
+ 23. ``offline_slam(corrected_pts=...)`` on the 80-scan undistortion
+     recipe: every match a PL-ICP launch, the corrected chain's ATE under
+     the raw one's;
+ 24. one JSON line with every kernel (its launches, error against its
      plain version, both times, and its bound: the larger of bytes over
      3.35 TB/s and operations over 67 T/s in float32, or 16.7 T/s for the
      correlative kernel's int32 adds), then ``{"ok": true, ...}`` last.
-Any failing phase raises: the script then exits non-zero and never prints
-the ok line. Without a CUDA device it raises at phase 1. A ``[time]`` line
-after each group of phases gives its wall and the running total.
+Phases 20-23 run right after phase 4. Any failing phase raises: the
+script then exits non-zero and never prints the ok line. Without a CUDA
+device it raises at phase 1. A ``[time]`` line after each group of
+phases gives its wall and the running total.
 """
 
 from __future__ import annotations
@@ -140,6 +156,7 @@ from tpu_slam_torch.parallel.distributed_step import (
 )
 from tpu_slam_torch.solver import banded
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
+from tpu_slam_torch.solver.cr_stream import streamed_cr_lm
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
 from tpu_slam_torch.solver.pose_graph import _route, _sq_min_delta
 from tpu_slam_torch.utils.evaluation import ate_rmse
@@ -727,9 +744,11 @@ def device_profile(fn):
             end = e
     per = {}
     for s, e, name in spans:
-        # a whole word, so that e.g. a library's "..._NN_kernel" is not "nn"
+        # "<key>_kernel" or "<key>_<stage>_kernel" from a word's start, so
+        # that e.g. a library's "..._NN_kernel" is not "nn"
         key = next((k for k in _dispatch.LAUNCHES
-                    if re.search(rf"(^|\W){k}_kernel\b", name)), "other")
+                    if re.search(rf"(^|\W){k}_(\w+_)?kernel\b", name)),
+                   "other")
         n, us = per.get(key, (0, 0.0))
         per[key] = (n + 1, us + e - s)
     return wall_us, busy, per
@@ -1717,6 +1736,288 @@ def phase_features(dev) -> None:
         raise AssertionError("features: mean count off the reference's")
 
 
+def bench_ring(M: int):
+    """bench_solver's ring (benchmarks/bench_solver.py, seed 0): M nodes on
+    a circle of 10 m, the drifting odometry as the initial guess, an edge
+    between neighbours and closures every 16 nodes across the circle (from
+    both ends, so the pair's second slot bank fills), information
+    diag(50, 50, 100). Returns (init, edges)."""
+    rng = np.random.default_rng(0)
+    th = np.linspace(0, 2 * np.pi, M, endpoint=False)
+    gt = np.stack([10 * np.cos(th), 10 * np.sin(th), th + np.pi / 2], -1)
+    init = gt + np.cumsum(rng.normal(0, [0.02, 0.02, 0.004], (M, 3)), 0)
+    pairs = [(i, (i + 1) % M) for i in range(M)]
+    pairs += [(i, (i + M // 2) % M) for i in range(0, M, 16)]
+    ei, ej = np.array(pairs).T
+    info = np.diag([50.0, 50.0, 100.0])
+    return init, [(i, j, m, info) for i, j, m in
+                  zip(ei, ej, gnp.relative(gt[ei], gt[ej]))]
+
+
+def skip_graph(n: int, strides=(8, 32), seed: int = 11):
+    """tests/test_pose_graph.py's mixed f64 graph at ``n`` nodes: a noisy
+    chain along a circle of 8 m with skip edges at ``strides``; with a
+    stride past the band cap it does not band. Returns (init, edges)."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi, n)
+    gt = np.stack([8 * np.cos(th), 8 * np.sin(th), th + np.pi / 2], -1)
+    rels = gnp.relative(gt[:-1], gt[1:])
+    edges = [(i, i + 1, rels[i] + rng.normal(0, 0.01, 3)) for i in range(n - 1)]
+    for s in strides:
+        rl = gnp.relative(gt[:-s], gt[s:])
+        edges += [(i, i + s, rl[i] + rng.normal(0, 0.004, 3))
+                  for i in range(0, n - s, s)]
+    init = [gt[0]]
+    for i in range(n - 1):
+        init.append(gnp.compose(init[-1], edges[i][2]))
+    info = np.diag([1e4, 1e4, 4e4])
+    return np.asarray(init), [(i, j, m, info) for i, j, m in edges]
+
+
+def cr_work(spec, pT8, slots, n_edges: int, iters: int) -> dict:
+    """``phase_cr``'s bound of a CR-LM solve: its inputs read and result
+    written once, and per LM iteration the edge work plus, per supernode
+    of n = 3W, the Cholesky (n³/3), D⁻¹[Bprevᵀ | B | r] (~4n³) and the
+    two Schur updates (~4n³)."""
+    n = 3 * spec.W
+    return bound(4 * (2 * pT8.numel() + slots.numel()),
+                 iters * (lm_edge_flops(n_edges)
+                          + spec.K * (n ** 3 / 3 + 8 * n ** 3)))
+
+
+STREAM_SHORT_ITERS = 3  # the like-for-like comparison of a whole LM step
+
+
+def streamed_compare(label: str, dev, poses, edges, reps: int = 3) -> dict:
+    """The streamed CR-LM kernel against its plain version (``cr_lm_plain``)
+    on a graph's ``direct_inputs``. After STREAM_SHORT_ITERS iterations
+    the poses must agree within LM_POSE_TOL (headings wrapped) and the
+    costs within LM_COST_RTOL. After the solve's 40 the final χ² must both
+    be ≤ 1e-6 × cost0 or within LM_COST_RTOL, and the poses within
+    LM_POSE_TOL where both solves converged (‖δ‖² under its floor before
+    the iteration cap). A ring of 16,384 nodes or more uses all 40: its
+    soft bending modes keep the float32 rounding of each step, which the
+    two sum orders make differently (the plain version in float32 and in
+    float64 part too, more with every iteration:
+    tests/test_torch_cr_stream.py::test_float32_spread_grows_on_a_large_ring),
+    so there the poses are printed, not held. Prints
+    both times of the full solve (the kernel's over ``reps`` runs after a
+    warm one, the plain version's one run, warmed by the short one), the
+    kernels the wrapper enqueues per solve and the bound; returns them
+    with max_abs_err, the full solves' pose gap where both converged,
+    else the short runs'."""
+    cfg = SolverConfig()
+    spec, pT8, slots = solver_from_numpy(cfg, poses, edges, dev).direct_inputs()
+
+    def run(solve, iters):
+        return solve(pT8, slots, cfg.initial_lambda, W=spec.W, K=spec.K,
+                     iters=iters,
+                     sq_min_delta=_sq_min_delta(cfg.convergence_delta))
+
+    def gap(k, p):
+        return float(pose_gap(k[0:3].T, p[0:3].T).max())
+
+    k, p = (run(f, STREAM_SHORT_ITERS) for f in (streamed_cr_lm, cr_lm_plain))
+    short = gap(k, p)
+    short_ok = (short <= LM_POSE_TOL and abs(float(k[3, 1]) - float(p[3, 1]))
+                <= LM_COST_RTOL * float(p[3, 1]))
+    T = cfg.max_iterations
+    k = run(streamed_cr_lm, T)
+    # the plain version's one full run, warmed by the short one, is timed
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    p = run(cr_lm_plain, T)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    dpose = gap(k, p)
+    c0, kc, pc = float(k[3, 0]), float(k[3, 1]), float(p[3, 1])
+    iters = int(k[3, 3])
+    converged = iters < T and int(p[3, 3]) < T
+    ok = (short_ok and bool(torch.isfinite(k).all())
+          and (dpose <= LM_POSE_TOL or not converged)
+          and (max(kc, pc) <= 1e-6 * c0 or abs(kc - pc) <= LM_COST_RTOL * pc))
+    ms = cuda_ms(lambda: run(streamed_cr_lm, T), reps)
+    per_iter = 3 * (spec.K.bit_length() - 1) + 6
+    work = cr_work(spec, pT8, slots, len(edges), iters)
+    print(f"{label}: nodes={len(poses)} edges={len(edges)} W={spec.W} "
+          f"K={spec.K} after {STREAM_SHORT_ITERS} iterations pose max|d|="
+          f"{short:.3e}; after {T}: pose max|d|={dpose:.3e} cost0 {c0:.6g} "
+          f"cost kernel {kc:.6g} plain {pc:.6g} iters kernel {iters} plain "
+          f"{int(p[3, 3])} good {int(k[3, 2])}/{int(p[3, 2])}; kernel {ms:.3f} "
+          f"ms plain {plain_ms:.3f} ms bound {work['bound_ms']:.5f} ms "
+          f"({work['bound_by']}); one wrapper launch enqueues "
+          f"{4 + T * per_iter} kernels, {per_iter} per LM iteration, of which "
+          f"{4 + iters * per_iter} run", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the streamed CR-LM kernel disagrees "
+                             "with its plain version")
+    return {"max_abs_err": dpose if converged else short, "ms": ms,
+            "plain_ms": plain_ms, **work}
+
+
+def phase_cr_stream(dev) -> dict:
+    """The streamed CR-LM kernel against its plain version on bench_solver's
+    rings of 4,096 (K 1,024) and 16,384 nodes (K 4,096), then on edge
+    cases: W = 2 (a plain 200-node ring, K 128), W = 8 (a 300-node chain
+    with stride-7 skip edges, K 128) and 32,768 nodes (K 8,192). Returns
+    the 4,096-node ring's numbers, the larger ring whose two solves both
+    converge (its max_abs_err the full solves' pose gap)."""
+    out = streamed_compare("cr_stream ring", dev, *bench_ring(4096))
+    streamed_compare("cr_stream ring", dev, *bench_ring(16384))
+    init, ei, ej, means, infos = _ring_edges(200, 0, np.random.default_rng(23))
+    streamed_compare("edge cr_stream W=2 ring", dev, init,
+                     list(zip(ei, ej, means, infos)))
+    streamed_compare("edge cr_stream W=8 skip chain", dev,
+                     *skip_graph(300, strides=(7,), seed=29))
+    streamed_compare("edge cr_stream ring", dev, *bench_ring(32768),
+                     reps=2)
+    return out
+
+
+def phase_cr_both(dev) -> None:
+    """Both CR-LM kernels on the same inputs, where both take them: the
+    1,024-node bench graph (K 256) and a 3,072-node bench_solver ring at
+    K 512, the largest K the single-launch kernel's route takes. They
+    must agree as ``streamed_compare``'s full solves do."""
+    cfg = SolverConfig()
+    for label, (poses, edges) in (("bench graph", bench_graph()),
+                                  ("ring", bench_ring(3072))):
+        spec, pT8, slots = solver_from_numpy(cfg, poses, edges,
+                                             dev).direct_inputs()
+        kw = dict(W=spec.W, K=spec.K, iters=cfg.max_iterations,
+                  sq_min_delta=_sq_min_delta(cfg.convergence_delta))
+
+        def single():
+            return fused_cr_lm(pT8, slots, cfg.initial_lambda, **kw)
+
+        def streamed():
+            return streamed_cr_lm(pT8, slots, cfg.initial_lambda, **kw)
+
+        a, b = single(), streamed()
+        torch.cuda.synchronize()
+        d = float(pose_gap(a[0:3].T, b[0:3].T).max())
+        c0, ca, cb = float(a[3, 0]), float(a[3, 1]), float(b[3, 1])
+        converged = max(int(a[3, 3]), int(b[3, 3])) < cfg.max_iterations
+        ms_a, ms_b = cuda_ms(single, 2), cuda_ms(streamed, 3)
+        print(f"cr_lm and cr_stream on the {label}: nodes={len(poses)} "
+              f"W={spec.W} K={spec.K} pose max|d|={d:.3e} cost0 {c0:.6g} "
+              f"cost {ca:.6g} / {cb:.6g} iters {int(a[3, 3])} / "
+              f"{int(b[3, 3])}; cr_lm {ms_a:.3f} ms cr_stream {ms_b:.3f} ms",
+              flush=True)
+        if not ((d <= LM_POSE_TOL or not converged)
+                and (max(ca, cb) <= 1e-6 * c0
+                     or abs(ca - cb) <= LM_COST_RTOL * ca)):
+            raise AssertionError(f"{label}: the two CR-LM kernels disagree")
+
+
+def phase_large_graph_main(dev) -> dict:
+    """The large-graph main path, with the launch counters zeroed first:
+    ``PoseGraphSolver.compute`` on bench_solver's rings of 4,096 and 16,384
+    nodes. Each solve must launch the streamed CR-LM kernel once and no
+    other LM kernel, and end at χ² ≤ 1e-6 × cost0; then each one's solve
+    ms (median of 3 warm runs, the poses reset between runs as
+    bench_solver does) and one 16,384-node solve under ``torch.profiler``.
+    Returns the counted launches."""
+    cfg = SolverConfig()
+    rings = {M: bench_ring(M) for M in (4096, 16384)}
+    solvers = {M: solver_from_numpy(cfg, *g, dev) for M, g in rings.items()}
+
+    def reset(M):
+        for i, p in enumerate(rings[M][0]):
+            solvers[M].set_node_pose(i, p)
+
+    _dispatch.reset_launches()
+    stats = {M: s.compute() for M, s in solvers.items()}
+    torch.cuda.synchronize()
+    launches = dict(_dispatch.LAUNCHES)
+    print(f"large-graph main path: launches {launches}", flush=True)
+    if launches["cr_stream"] != len(rings) or any(
+            v for k, v in launches.items() if k != "cr_stream"):
+        raise AssertionError("a large-graph solve did not run the streamed "
+                             "CR-LM kernel alone")
+    for M, st in stats.items():
+        poses = solvers[M].get_poses()
+        walls = []
+        for _ in range(3):
+            reset(M)
+            t0 = time.perf_counter()
+            solvers[M].compute()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"large-graph solve {M} nodes: cost {st.initial_cost:.6g} -> "
+              f"{st.final_cost:.6g} ({st.iterations} good iterations); solve "
+              f"ms median {sorted(walls)[1]:.3f} (min {min(walls):.3f} max "
+              f"{max(walls):.3f}) over 3 warm runs", flush=True)
+        if not (np.all(np.isfinite(poses))
+                and st.final_cost <= 1e-6 * st.initial_cost):
+            raise AssertionError(f"{M}-node ring: χ² did not reach ~0")
+    reset(16384)
+    prof = device_profile(lambda: solvers[16384].compute())
+    print(profile_line("large-graph solve, 16,384 nodes", *prof), flush=True)
+    return launches
+
+
+def phase_host_f64(dev) -> None:
+    """The host f64 arm on the card's machine: a 3,200-node skip-edge graph
+    (tests/test_pose_graph.py's shape) does not band and passes
+    ``f64_schur_above`` (3,000), so ``PoseGraphSolver`` on the card solves
+    it in float64 on the host and launches nothing."""
+    cfg = SolverConfig()
+    s = solver_from_numpy(cfg, *skip_graph(3200), dev)
+    route = _route(s.num_nodes, s.num_edges, dev, cfg, s._band_spec)
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    st = s.compute()
+    wall = time.perf_counter() - t0
+    launches = sum(_dispatch.LAUNCHES.values())
+    print(f"host f64 arm: nodes={s.num_nodes} edges={s.num_edges} route "
+          f"{route}; cost {st.initial_cost:.6g} -> {st.final_cost:.6g} "
+          f"({st.iterations} good iterations); wall {wall:.3f} s; kernel "
+          f"launches {launches}", flush=True)
+    if route != "host_f64" or launches or not (
+            np.all(np.isfinite(s.get_poses()))
+            and st.final_cost < st.initial_cost):
+        raise AssertionError("the 3,200-node skip-edge graph did not solve "
+                             "on the host f64 arm alone")
+
+
+def phase_offline_corrected(dev) -> int:
+    """``offline_slam(corrected_pts=...)`` on the 80-scan undistortion
+    recipe, with the counters zeroed first: the mission on raw points and
+    on ``undistort_mission``'s. Every match (the chain, each loop round)
+    must launch the PL-ICP kernel once, and the corrected chain's ATE must
+    beat the raw one's. Returns the PL-ICP launches."""
+    cfg, scans, _streams, seq = undistortion_recipe(dev)
+    corrected = offline.undistort_mission(
+        scans, seq.imu_stamps, seq.imu_omega, seq.odom_stamps, seq.odom_poses)
+    timers = {"raw": StageTimer(), "corrected": StageTimer()}
+    _dispatch.reset_launches()
+    runs = {name: offline_slam(scans, cfg, odom=seq.gt_poses, timer=timer,
+                               corrected_pts=corrected if name != "raw"
+                               else None)
+            for name, timer in timers.items()}
+    torch.cuda.synchronize()
+    launches = dict(_dispatch.LAUNCHES)
+    matches = sum(t.counts["chain_match"] + t.counts["loop_match"]
+                  for t in timers.values())
+    ate = {name: (float(ate_rmse(r.chain_poses, seq.gt_poses)),
+                  float(ate_rmse(r.poses, seq.gt_poses)))
+           for name, r in runs.items()}
+    print(f"offline corrected_pts: {scans.ranges.shape[0]} scans; chain ATE "
+          f"raw {ate['raw'][0]:.5f} m corrected {ate['corrected'][0]:.5f} m; "
+          f"final ATE raw {ate['raw'][1]:.5f} m corrected "
+          f"{ate['corrected'][1]:.5f} m; loops raw {len(runs['raw'].loops)} "
+          f"corrected {len(runs['corrected'].loops)}; matches {matches}; "
+          f"launches {launches}", flush=True)
+    if launches["plicp_fused"] != matches:
+        raise AssertionError("offline corrected_pts: not every match ran the "
+                             "PL-ICP kernel")
+    if not ate["corrected"][0] < ate["raw"][0]:
+        raise AssertionError("offline corrected_pts: the corrected chain "
+                             "does not beat the raw one")
+    return launches["plicp_fused"]
+
+
 class PhaseClock:
     """Prints the wall of each group of phases and the running total, so
     that a run shows where its time limit goes."""
@@ -1741,6 +2042,12 @@ def main() -> None:
     cr = phase_cr(dev)
     phase_edge_cases(dev)
     clock("PL-ICP, CR-LM and edge cases")
+    stream = phase_cr_stream(dev)
+    phase_cr_both(dev)
+    large_launches = phase_large_graph_main(dev)
+    phase_host_f64(dev)
+    phase_offline_corrected(dev)
+    clock("large pose graphs, host f64 arm, corrected mission")
     cfg, scans, odom, res, launches, batches = phase_main_path(dev)
     phase_mission_batches(cfg, res.poses.shape[0], batches)
     pcg = phase_pcg(dev, res)
@@ -1775,6 +2082,10 @@ def main() -> None:
          "source": "tpu_slam_torch/csrc/cr_lm.cu",
          "replaces": "tpu_slam/solver/pallas_cr_lm.py:573",
          "launches": launches["cr_lm"], **cr},
+        {"name": "cr_stream", "route": "cuda",
+         "source": "tpu_slam_torch/csrc/cr_stream.cu",
+         "replaces": "tpu_slam/solver/cr_stream.py:529",
+         "launches": large_launches["cr_stream"], **stream},
         {"name": "pcg_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/pcg_lm.cu",
          "replaces": "tpu_slam/solver/pallas_lm.py:384",

@@ -126,6 +126,19 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert _dispatch.LAUNCHES == before
 
 
+def test_kernel_launch_bound_is_the_route_split():
+    # the route sends K ≤ K_MAX supernodes to the kernel, one thread each:
+    # the kernel must be compiled for that many threads a block (without
+    # the bound its registers kept 512 threads from launching)
+    import re
+
+    from tpu_slam_torch import _build
+
+    src = (_build.CSRC / "cr_lm.cu").read_text()
+    assert re.search(r"constexpr int K_MAX = (\d+);", src)[1] == str(cr_lm.K_MAX)
+    assert "__launch_bounds__(K_MAX) cr_lm_kernel" in src
+
+
 def test_kernel_scratch_size_covers_the_layout():
     # P, C (3·WK each), D, B, X1, X2 (n²K each), r, Xr, x (nK each) and the
     # high-node staging rows — the layout csrc/cr_lm.cu carves up

@@ -103,17 +103,104 @@ def test_unported_stages_raise():
     cfg, scans, _seq, odom = _corridor_mission()
     cfg = _port_cfg(cfg)
     port = _port_scans(scans)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, item 6: multi-device"):
         toff.offline_slam(port, cfg, odom=odom, mesh=object())
-    with pytest.raises(NotImplementedError, match="undistortion"):
-        toff.offline_slam(port, cfg, odom=odom,
-                          corrected_pts=np.zeros((1, 1, 2)))
     # a drift-control route length engages skip edges / anchors
     short = dataclasses.replace(
         cfg, offline=dataclasses.replace(cfg.offline,
                                          drift_control_min_route=1.0))
     with pytest.raises(NotImplementedError, match="drift-control"):
         toff.offline_slam(port, short, odom=odom)
+
+
+@pytest.fixture(scope="module")
+def undistorted():
+    """tests/test_offline.py::test_offline_undistortion_mission's recipe
+    (16 scans of 180 beams under fast rotation, motion distortion, IMU at
+    500 Hz and odometry at 200 Hz) through both packages: the corrected
+    points, and the mission on raw and on corrected points."""
+    from tpu_slam.config import ScanConfig, default_config
+    from tpu_slam.data import simulator as sim
+    from tpu_slam.data.scan import make_scan
+
+    scfg = ScanConfig(num_beams=180)
+    cfg = dataclasses.replace(default_config(), scan=scfg)
+    traj = sim.circle_trajectory(16, radius=1.5, angular_rate=1.5)
+    seq = sim.simulate_sequence(
+        sim.office_world(seed=5), traj, scfg, noise_std=0.0, seed=1,
+        motion_distortion=True, imu_rate_hz=500.0, odom_rate_hz=200.0)
+    scans = make_scan(seq.ranges, scfg, stamp=seq.stamps.astype(np.float32))
+    streams = (seq.imu_stamps, seq.imu_omega, seq.odom_stamps,
+               seq.odom_poses)
+    port = _port_scans(scans)
+    pcfg = _port_cfg(cfg)
+    corrected = toff.undistort_mission(port, *streams)
+    return dict(
+        cfg=pcfg, seq=seq, scans=port, streams=streams, corrected=corrected,
+        ref_corrected=joff.undistort_mission(scans, *streams),
+        raw=toff.offline_slam(port, pcfg, odom=seq.gt_poses),
+        fixed=toff.offline_slam(port, pcfg, odom=seq.gt_poses,
+                                corrected_pts=corrected),
+        ref_fixed=joff.offline_slam(scans, cfg, odom=seq.gt_poses,
+                                    corrected_pts=corrected))
+
+
+def test_undistort_mission_batched_equals_per_scan(undistorted):
+    import torch
+
+    from tpu_slam_torch.data.scan import index_scan
+    from tpu_slam_torch.ops.undistort import undistort_scan
+
+    u = undistorted
+    one = undistort_scan(index_scan(u["scans"], 5), *(
+        torch.as_tensor(np.asarray(a, np.float32)) for a in u["streams"]))
+    v5 = u["scans"].valid[5].numpy()
+    np.testing.assert_allclose(u["corrected"][5][v5], one.numpy()[v5],
+                               atol=1e-5)
+    assert u["corrected"].dtype == np.float32
+    assert not u["corrected"][~u["scans"].valid.numpy()].any()
+
+
+def test_undistort_mission_matches_reference(undistorted):
+    np.testing.assert_allclose(undistorted["corrected"],
+                               undistorted["ref_corrected"], atol=1e-5)
+
+
+def test_corrected_mission_beats_raw(undistorted):
+    u = undistorted
+    gt = u["seq"].gt_poses
+    ate_raw = ate_rmse(u["raw"].chain_poses, gt)
+    ate_fix = ate_rmse(u["fixed"].chain_poses, gt)
+    assert ate_fix < 0.5 * ate_raw, (ate_raw, ate_fix)
+
+
+def test_corrected_mission_matches_reference(undistorted):
+    fixed, ref = undistorted["fixed"], undistorted["ref_fixed"]
+    np.testing.assert_allclose(fixed.chain_poses, ref.chain_poses, atol=1e-4)
+    np.testing.assert_allclose(fixed.poses, ref.poses, atol=1e-4)
+
+
+def test_corrected_mission_uploads_a_points_store(monkeypatch, undistorted):
+    # a corrected mission has per-beam directions: the matcher gets the
+    # (T, N, 2) points, never the shared-direction ranges store
+    u = undistorted
+    stores = []
+    make = toff.make_chain_matcher
+
+    def recording(cfg):
+        f = make(cfg)
+
+        def g(store, *args):
+            stores.append(tuple(store.shape))
+            return f(store, *args)
+        return g
+
+    monkeypatch.setattr(toff, "make_chain_matcher", recording)
+    for pts in (u["corrected"], None):
+        toff.offline_slam(u["scans"], u["cfg"], odom=u["seq"].gt_poses,
+                          corrected_pts=pts)
+    assert stores == [(16, 180, 2), (16, 180)]
 
 
 def test_needs_two_scans():

@@ -1,12 +1,14 @@
 """Port parity: tpu_slam_torch.solver.pose_graph.PoseGraphSolver against
 tpu_slam's on the same graphs, through each route the port takes: dense,
-cyclic reduction and PCG. On the CPU the JAX solver takes its dense or CG
-program."""
+cyclic reduction (the single-launch and the streamed entry), PCG and the
+host f64 arm. On the CPU the JAX solver takes its dense or CG program, or
+its host f64 arm at f64_schur_above nodes."""
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_slam import config as jconfig
 from tpu_slam import geometry_np as gnp
@@ -132,29 +134,154 @@ def test_degenerate_covariance_is_regularized():
 
 def test_unported_routes_raise():
     init, edges, _gt = _ring(n=80, stride=1)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, item 6: multi-device"):
         PoseGraphSolver(SolverConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="_host_direct_lm"):
+    # at f64_schur_above nodes the host f64 arm runs; without it the
+    # device f64 Schur solve, not ported
+    with pytest.raises(NotImplementedError,
+                       match=r"f64 Schur .*queue 1, item 7"):
         _port_solve(SolverConfig(use_dense_below=32, f64_schur_above=64,
-                                 use_direct=False), init, edges)
-    with pytest.raises(NotImplementedError, match="Schur"):
+                                 use_direct=False,
+                                 host_direct_fallback=False), init, edges)
+    with pytest.raises(NotImplementedError, match=r"Schur.*queue 1, item 7"):
         _port_solve(SolverConfig(use_dense_below=32, use_schur=True),
                     init, edges)
-    with pytest.raises(NotImplementedError, match="restarted CG"):
+    with pytest.raises(NotImplementedError,
+                       match=r"restarted CG.*queue 1, item 3"):
         _port_solve(SolverConfig(use_dense_below=32, use_direct=False,
                                  cg_restarts=2), init, edges)
 
 
-def test_large_band_raises_streamed_cr():
-    # 3,000 chain nodes band at W = 2 with K = 2,048 > 512 supernodes
+@pytest.mark.parametrize("nodes, bands, kw, route", [
+    # the reference's order (tpu_slam/solver/pose_graph.py:939-1038):
+    # a band first unless use_schur, then f64_schur_above, then Schur
+    (4000, False, dict(use_schur=True), "host_f64"),
+    (1000, False, dict(use_schur=True), "schur"),
+    (4000, True, dict(use_schur=True), "host_f64"),
+    (4000, True, {}, "direct"),
+    (4000, False, dict(host_direct_fallback=False), "f64_schur"),
+    (4000, False, {}, "host_f64"),
+    (1000, False, dict(cg_restarts=2), "cg_restarts"),
+    (1000, False, {}, "pcg"),
+])
+def test_route_order_is_the_reference_order(nodes, bands, kw, route):
+    cfg = SolverConfig(**kw)
+    assert cfg.f64_schur_above == 3000 and cfg.use_dense_below == 512
+    spec = (lambda: object()) if bands else (lambda: None)
+    assert tpg._route(nodes, 2 * nodes, "cuda", cfg, spec) == route
+    assert tpg._route(nodes, 2 * nodes, "cpu", cfg, spec) == route
+
+
+@pytest.fixture
+def one_thread():
+    """The plain CR-LM at W = 2 (batches of 6 × 6 blocks) ran ~20× slower
+    on 8 intra-op threads than on one, here."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_large_band_routes_to_the_streamed_cr(monkeypatch, one_thread):
+    # 3,000 chain nodes band at W = 2 with K = 2,048 > K_MAX supernodes
     n = 3000
-    init = np.zeros((n, 3))
-    init[:, 0] = np.arange(n) * 0.1
+    rng = np.random.default_rng(4)
+    truth = np.zeros((n, 3))
+    truth[:, 0] = np.arange(n) * 0.1
+    init = truth + rng.normal(0, 0.01, (n, 3)) * (np.arange(n) > 0)[:, None]
     edges = [(i, i + 1, np.array([0.1, 0.0, 0.0]), np.eye(3))
              for i in range(n - 1)]
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((kw["W"], kw["K"]))
+        return streamed(*args, **kw)
+
+    streamed = tpg.streamed_cr_lm
+    monkeypatch.setattr(tpg, "streamed_cr_lm", recording)
     s = solver_from_numpy(SolverConfig(), init, edges, device="cpu")
-    with pytest.raises(NotImplementedError, match="streamed_cr_lm"):
-        s.compute()
+    stats = s.compute()
+    assert calls == [(2, 2048)]
+    assert stats.final_cost <= 1e-6 * stats.initial_cost
+    # float32 along a 300 m chain: the heading noise left when ‖δ‖² falls
+    # under 1e-8 times the lever (measured 1.2e-3 m at the far end)
+    np.testing.assert_allclose(s.get_poses(), truth, atol=5e-3)
+
+
+def test_large_ring_matches_reference_host_f64(monkeypatch):
+    """bench_solver's 4,096-node ring (W 6, K 1,024): the port solves it
+    by the streamed CR route, the reference on the CPU by its host f64 arm
+    (the CR kernels run only on its TPU); the two land on the same optimum
+    (measured 1.9e-6)."""
+    from test_banded import ring_problem
+
+    init, ei, ej, means, infos = ring_problem(4096, stride=16)
+    edges = list(zip(ei.tolist(), ej.tolist(), means, infos))
+    cfg = SolverConfig()
+    port = solver_from_numpy(cfg, init, edges, device="cpu")
+    spec = port._band_spec()
+    assert (spec.W, spec.K) == (6, 1024)
+    calls = []
+    streamed = tpg.streamed_cr_lm
+    monkeypatch.setattr(tpg, "streamed_cr_lm",
+                        lambda *a, **kw: calls.append(1) or streamed(*a, **kw))
+    ts, tp = port.compute(), port.get_poses()
+    assert calls == [1]
+    js, jp = _jax_solve(cfg, init, edges)
+    assert ts.final_cost <= 1e-6 * ts.initial_cost
+    assert js.final_cost <= 1e-6 * js.initial_cost
+    assert ts.initial_cost == pytest.approx(js.initial_cost, rel=1e-5)
+    np.testing.assert_allclose(tp, jp, atol=1e-4)
+
+
+def _skip_edge_graph():
+    """tests/test_pose_graph.py::test_mixed_schur_f64_path_matches_oracle's
+    graph: a 160-node arc with skip edges at strides 8 and 32, which does
+    not band under RCM."""
+    rng = np.random.default_rng(11)
+    n = 160
+    th = np.linspace(0, 2 * np.pi, n)
+    gt = np.stack([8 * np.cos(th), 8 * np.sin(th), th + np.pi / 2], -1)
+    gt[:, 2] = np.arctan2(np.sin(gt[:, 2]), np.cos(gt[:, 2]))
+    edges = []
+    rels = gnp.relative(gt[:-1], gt[1:])
+    for i in range(n - 1):
+        edges.append((i, i + 1, rels[i] + rng.normal(0, 0.01, 3)))
+    for s in (8, 32):
+        rl = gnp.relative(gt[:-s], gt[s:])
+        for i in range(0, n - s, s):
+            edges.append((i, i + s, rl[i] + rng.normal(0, 0.004, 3)))
+    init = [gt[0]]
+    for i in range(n - 1):
+        init.append(gnp.compose(init[-1], edges[i][2]))
+    info = np.diag([1e4, 1e4, 4e4])
+    return np.asarray(init), [(i, j, m, info) for i, j, m in edges]
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_host_f64_arm_matches_reference(device):
+    # the solve runs on the host whatever the solver's device: no tensor is
+    # made on it and no kernel launched, so "cuda" runs here too
+    init, edges = _skip_edge_graph()
+    cfg = SolverConfig(f64_schur_above=64, use_dense_below=32)
+    s = solver_from_numpy(cfg, init, edges, device=device)
+    assert s._band_spec() is None
+    assert tpg._route(s.num_nodes, s.num_edges, device, cfg,
+                      s._band_spec) == "host_f64"
+    before = dict(_dispatch.LAUNCHES)
+    pending = s.compute_async()
+    assert pending._packed.dtype == torch.float64
+    ts, tp = pending.harvest(), s.get_poses()
+    assert _dispatch.LAUNCHES == before
+    js, jp = _jax_solve(cfg, init, edges)  # the reference's host arm on the CPU
+    # both are the same float64 host code
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-9)
+    assert ts.iterations == js.iterations
+    assert ts.initial_cost == pytest.approx(js.initial_cost, rel=1e-9)
+    assert ts.final_cost == pytest.approx(js.final_cost, rel=1e-9)
+    # the edges are noisy: the optimum keeps a χ² of ~100
+    assert ts.iterations > 0 and ts.final_cost < 0.05 * ts.initial_cost
 
 
 def test_each_route_counts_no_launch_on_cpu():

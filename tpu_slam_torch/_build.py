@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/tpu_slam_torch/`` at the
 root of the checkout (git-ignored), under a name that carries a hash of the
-source and the flags, and loaded with ``ctypes``. A build or load failure
-raises; nothing falls back to the plain versions.
+source, the shared headers and the flags, and loaded with ``ctypes``. A
+build or load failure raises; nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -40,6 +40,11 @@ SIGNATURES = {
     ),
     "cr_lm": (
         "cr_lm_launch",
+        # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta, stream
+        [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _VP],
+    ),
+    "cr_stream": (
+        "cr_stream_launch",
         # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta, stream
         [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _VP],
     ),
@@ -82,9 +87,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of kernel ``name``, named by a hash of its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

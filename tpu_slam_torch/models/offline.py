@@ -10,10 +10,12 @@ calls — port of ``tpu_slam/models/offline.py::offline_slam``.
   4. pairwise-consistent loops plus the chain feed the LM pose-graph solve;
   5. detection → match → solve repeats ``OfflineConfig.rounds`` times.
 
-The device is the device of the scans' tensors. Not ported yet, and raising
+The device is the device of the scans' tensors. ``corrected_pts`` (for
+instance ``undistort_mission``'s output) replaces the polar→Cartesian
+conversion of the scans. Not ported yet, and raising
 ``NotImplementedError`` where they would fire: the drift-control stages of
-routes ≥ ``drift_control_min_route`` (skip edges and correlative anchors),
-the ``mesh`` form and ``corrected_pts``.
+routes ≥ ``drift_control_min_route`` (skip edges and correlative anchors)
+and the ``mesh`` form.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from tpu_slam_torch import geometry_np as gnp
 from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.data.scan import Scan
+from tpu_slam_torch.ops.undistort import undistort_scan
 from tpu_slam_torch.parallel.distributed_step import (
     make_chain_matcher, make_loop_selector,
 )
@@ -199,6 +202,32 @@ def _thin_loops(loop_edges: list[LoopEdge], ocfg) -> list[LoopEdge]:
     return kept
 
 
+def undistort_mission(
+    scans: Scan,
+    imu_stamps,
+    imu_omega,
+    odom_stamps,
+    odom_poses,
+    use_imu: bool = True,
+    use_odom: bool = True,
+) -> np.ndarray:
+    """Motion-distortion correction of a whole mission in one batched call
+    of ``ops/undistort.undistort_scan`` on the scans' device, for
+    ``offline_slam(corrected_pts=...)``. Returns (T, N, 2) float32 points
+    with invalid beams and non-finite points zeroed."""
+    def up(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=scans.device)
+
+    pts = undistort_scan(
+        scans, up(imu_stamps), up(imu_omega), up(odom_stamps),
+        up(odom_poses), use_imu=use_imu, use_odom=use_odom,
+    ).cpu().numpy()
+    pts = np.where(scans.valid.cpu().numpy()[..., None], pts,
+                   0.0).astype(np.float32)
+    pts[~np.isfinite(pts)] = 0.0
+    return pts
+
+
 def offline_slam(
     scans: Scan,
     cfg: SLAMConfig,
@@ -207,16 +236,15 @@ def offline_slam(
     timer=None,
     corrected_pts: np.ndarray | None = None,
 ) -> OfflineResult:
-    """Run the offline pipeline on the device of ``scans``' tensors."""
+    """Run the offline pipeline on the device of ``scans``' tensors.
+
+    corrected_pts: optional (T, N, 2) laser-frame points to match instead
+    of the scans' polar→Cartesian conversion, e.g. ``undistort_mission``'s
+    output."""
     if mesh is not None:
         raise NotImplementedError(
             "offline_slam over a mesh is not ported yet (ROADMAP queue 1, "
-            "item 11: multi-device layer)"
-        )
-    if corrected_pts is not None:
-        raise NotImplementedError(
-            "corrected_pts needs the undistortion front-end, not ported yet "
-            "(ROADMAP queue 1, item 9)"
+            "item 6: multi-device layer)"
         )
     timer = timer if timer is not None else StageTimer()
     ocfg = cfg.offline
@@ -230,21 +258,28 @@ def offline_slam(
 
     # mission scan store, uploaded ONCE; every match stage addresses it by
     # row index. A fixed-mount laser shares one beam-direction row, so the
-    # store holds ranges plus an (N, 2) direction table; otherwise points.
+    # store holds ranges plus an (N, 2) direction table; a corrected
+    # mission has per-beam directions, so its store holds points.
     Ts = _bucket(T, lo=16)
     storev = np.zeros((Ts,) + valid.shape[1:], bool)
     storev[:T] = valid
-    if angles.ndim == 1 or bool(np.all(angles == angles[:1])):
-        a0 = angles if angles.ndim == 1 else angles[0]
-        store = np.zeros((Ts,) + valid.shape[1:], np.float32)
-        store[:T] = np.where(valid & np.isfinite(ranges), ranges, 0.0)
-        dirs = np.stack([np.cos(a0), np.sin(a0)], axis=-1).astype(np.float32)
+    if corrected_pts is not None:
+        pts = np.where(valid[..., None], np.asarray(corrected_pts, np.float32),
+                       0.0).astype(np.float32)
+    elif angles.ndim == 1 or bool(np.all(angles == angles[:1])):
+        pts = None
     else:
         pts = np.where(
             valid[..., None],
             np.stack([ranges * np.cos(angles), ranges * np.sin(angles)], -1),
             0.0,
         ).astype(np.float32)
+    if pts is None:
+        a0 = angles if angles.ndim == 1 else angles[0]
+        store = np.zeros((Ts,) + valid.shape[1:], np.float32)
+        store[:T] = np.where(valid & np.isfinite(ranges), ranges, 0.0)
+        dirs = np.stack([np.cos(a0), np.sin(a0)], axis=-1).astype(np.float32)
+    else:
         pts[~np.isfinite(pts)] = 0.0
         store = np.zeros((Ts,) + pts.shape[1:], np.float32)
         store[:T] = pts
@@ -310,7 +345,7 @@ def offline_slam(
             raise NotImplementedError(
                 f"route of {route_len:.1f} m engages the drift-control "
                 "stages (skip edges, correlative anchors), which are not "
-                "ported yet (ROADMAP queue 1, item 7)"
+                "ported yet (ROADMAP queue 1, item 2)"
             )
 
     def _build_solver(loop_edges: list[LoopEdge], init_poses: np.ndarray):

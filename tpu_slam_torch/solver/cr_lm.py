@@ -24,7 +24,9 @@ from tpu_slam_torch import _build, _dispatch
 from tpu_slam_torch.solver.banded import NBANKS, SLOT_ROWS
 from tpu_slam_torch.solver.lm import lm_loop, norm_angle, omega, pack
 
-K_MAX = 512  # routing split kept from the reference (cr_lm_applicable)
+# the routing split kept from the reference (cr_lm_applicable), and the
+# kernel's launch bound: one thread per supernode (cr_lm.cu)
+K_MAX = 512
 STAGE_ROWS = 12  # kernel staging rows per slot: 9 H entries + 3 b entries
 
 
@@ -32,6 +34,20 @@ def scratch_floats(W: int, K: int) -> int:
     """Float count of the kernel's device scratch (see cr_lm.cu)."""
     n, WK = 3 * W, W * K
     return 6 * WK + 4 * n * n * K + 3 * n * K + NBANKS * W * STAGE_ROWS * WK
+
+
+def check_packed(pT8: torch.Tensor, slots: torch.Tensor, W: int,
+                 K: int) -> None:
+    """Raise unless ``pT8`` and ``slots`` are contiguous float32 tensors of
+    the packed contract's shapes on one device."""
+    WK = W * K
+    for name, t, shape in (("pT8", pT8, (8, WK)),
+                           ("slots", slots, (NBANKS * W * SLOT_ROWS, WK))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != pT8.device or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float32 {shape} "
+                             f"on {pT8.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def fused_cr_lm(pT8: torch.Tensor, slots: torch.Tensor, lam0: float, *,
@@ -43,16 +59,10 @@ def fused_cr_lm(pT8: torch.Tensor, slots: torch.Tensor, lam0: float, *,
                            sq_min_delta=sq_min_delta)
     dev = pT8.device
     WK = W * K
-    if not (1 <= W <= 8 and K >= 32 and K <= 1024 and K & (K - 1) == 0):
+    if not (1 <= W <= 8 and 32 <= K <= K_MAX and K & (K - 1) == 0):
         raise ValueError(f"CR-LM kernel takes W in 1..8 and K a power of "
-                         f"two in 32..1024, got W={W}, K={K}")
-    for name, t, shape in (("pT8", pT8, (8, WK)),
-                           ("slots", slots, (NBANKS * W * SLOT_ROWS, WK))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous float32 {shape} "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
+                         f"two in 32..{K_MAX}, got W={W}, K={K}")
+    check_packed(pT8, slots, W, K)
     out = torch.empty((8, WK), dtype=torch.float32, device=dev)
     scratch = torch.empty(scratch_floats(W, K), dtype=torch.float32,
                           device=dev)

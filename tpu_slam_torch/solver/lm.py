@@ -116,10 +116,10 @@ def lm_loop(p0, cost_of, step_of, wrap, lam0, iters, sq_min_delta):
 
 
 def pack(posesT, cost0, cost, good, iters) -> torch.Tensor:
-    """The packed (8, max(L, 4)) result: poses (3, L) in rows 0..2,
-    (cost0, cost, good, iters) in row 3, lanes 0..3."""
+    """The packed (8, max(L, 4)) result in the type of ``posesT``: poses
+    (3, L) in rows 0..2, (cost0, cost, good, iters) in row 3, lanes 0..3."""
     L = posesT.shape[1]
-    out = torch.zeros((8, max(L, 4)), dtype=torch.float32,
+    out = torch.zeros((8, max(L, 4)), dtype=posesT.dtype,
                       device=posesT.device)
     out[0:3, :L] = posesT
     out[3, 0] = cost0

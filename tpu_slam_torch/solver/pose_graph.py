@@ -5,7 +5,7 @@ The residual model, the normal equations and the LM schedule are doSPA's
 (``solver/lm.py``); the loop stops once ‖δ‖² is under the float32-floored
 ``convergence_delta``.
 
-Routing (``_route``) follows the reference's on its TPU:
+Routing (``_route``) follows the reference's on its TPU, in its order:
   * nodes ≤ ``use_dense_below`` on ``cuda`` → the block-Jacobi PCG LM
     (``solver/pcg_lm.fused_lm_solve``) where the reference runs its fused
     Pallas LM: ``use_fused_kernel``, ``cg_restarts ≤ 1``, no ``use_schur``,
@@ -14,14 +14,20 @@ Routing (``_route``) follows the reference's on its TPU:
     cap. Graphs of ≤ 128 nodes or ≤ 128 edges fail the bucket test. Every
     other small graph → the dense LM below, which is also the reference's
     route off the TPU;
-  * a larger graph that bands under RCM with K ≤ 512 supernodes → the
-    cyclic-reduction LM (``solver/cr_lm.fused_cr_lm``);
-  * a larger graph that does not band, below ``f64_schur_above`` nodes →
-    the PCG LM;
-  * anything else raises ``NotImplementedError`` naming the ROADMAP item
-    that ports it.
-Both LM routes launch their CUDA kernel on ``cuda`` and run its plain
-version on ``cpu``.
+  * a larger graph that bands under RCM (``use_direct``, no
+    ``use_schur``) → the cyclic-reduction LM: ``solver/cr_lm.fused_cr_lm``
+    up to ``K_MAX`` (512) supernodes, ``solver/cr_stream.streamed_cr_lm``
+    above;
+  * a graph of ``f64_schur_above`` nodes or more → the float64
+    sparse-direct LM on the host (``_host_direct_lm``), ``use_schur`` or
+    not; with ``host_direct_fallback=False`` the device f64 Schur solve,
+    which raises;
+  * ``use_schur`` or ``cg_restarts > 1`` raise;
+  * any other graph → the PCG LM.
+The device routes launch their CUDA kernel on ``cuda`` and run its plain
+version on ``cpu``; the host arm runs on the host on either device.
+Routes not ported raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_slam_torch import geometry_np as gnp
 from tpu_slam_torch._dispatch import DEFAULT_DEVICE
 from tpu_slam_torch.config import SolverConfig
 from tpu_slam_torch.solver import banded
 from tpu_slam_torch.solver.cr_lm import K_MAX, fused_cr_lm
+from tpu_slam_torch.solver.cr_stream import streamed_cr_lm
 from tpu_slam_torch.solver.lm import (  # noqa: F401  (the reference's names)
     edge_jacobians,
     edge_residuals,
@@ -106,13 +114,115 @@ def _dense_lm(p0, ei, ej, means, infos, free, lam0, iters, sq_min_delta):
     return pack(p.T, cost0, cost, good, it)
 
 
+def _host_direct_lm(poses, ei, ej, means, infos, free, iters, lam0,
+                    sq_min_delta):
+    """The doSPA LM in float64 on the host, each step a sparse direct
+    solve (scipy's ``spsolve``) — the reference's arm for large graphs
+    that do not band (``tpu_slam/solver/pose_graph.py:_host_direct_lm``).
+    Their soft global modes need a float64 factorization. The damping is
+    doSPA's: the diagonal × (1 + λ) plus a 1e-12 jitter; a step is
+    accepted when it lowers the cost, and the loop stops, the step not
+    taken, once ‖δ‖² < ``sq_min_delta``. Returns (poses (M, 3), cost0,
+    cost, good, iterations)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    p = np.asarray(poses, np.float64).copy()
+    M, E = p.shape[0], len(ei)
+    infw = np.asarray(infos, np.float64)
+    fidx = np.nonzero(free)[0]
+    col_of = -np.ones(M, np.int64)
+    col_of[fidx] = np.arange(len(fidx))
+    nf = len(fidx)
+
+    def residuals(q):
+        r = gnp.compose(gnp.inverse(q[ei]), q[ej]) - means
+        r[:, 2] = np.arctan2(np.sin(r[:, 2]), np.cos(r[:, 2]))
+        return r
+
+    def cost(q):
+        r = residuals(q)
+        return float(np.einsum("ei,eij,ej->", r, infw, r))
+
+    # the COO pattern: four 3×3 blocks per edge between free nodes
+    bi, bj = col_of[ei], col_of[ej]
+    r3 = np.arange(3)
+
+    def block_idx(a, b):
+        n = len(a)
+        rows = np.broadcast_to(
+            3 * a[:, None, None] + r3[None, :, None], (n, 3, 3))
+        cols = np.broadcast_to(
+            3 * b[:, None, None] + r3[None, None, :], (n, 3, 3))
+        return rows, cols
+
+    lam, laminc = float(lam0), 2.0
+    c = cost0 = cost(p)
+    good = it = 0
+    for _ in range(iters):
+        it += 1
+        r = residuals(p)
+        ci, si = np.cos(p[ei, 2]), np.sin(p[ei, 2])
+        dx, dy = p[ej, 0] - p[ei, 0], p[ej, 1] - p[ei, 1]
+        Ji = np.zeros((E, 3, 3))
+        Jj = np.zeros((E, 3, 3))
+        Ji[:, 0, 0], Ji[:, 0, 1], Ji[:, 0, 2] = -ci, -si, -si * dx + ci * dy
+        Ji[:, 1, 0], Ji[:, 1, 1], Ji[:, 1, 2] = si, -ci, -ci * dx - si * dy
+        Ji[:, 2, 2] = -1.0
+        Jj[:, 0, 0], Jj[:, 0, 1] = ci, si
+        Jj[:, 1, 0], Jj[:, 1, 1] = -si, ci
+        Jj[:, 2, 2] = 1.0
+        JiW = np.einsum("eba,ebc->eac", Ji, infw)
+        JjW = np.einsum("eba,ebc->eac", Jj, infw)
+        Hii = np.einsum("eab,ebc->eac", JiW, Ji)
+        Hjj = np.einsum("eab,ebc->eac", JjW, Jj)
+        Hij = np.einsum("eab,ebc->eac", JiW, Jj)
+        g = np.zeros((M, 3))
+        np.add.at(g, ei, np.einsum("eab,eb->ea", JiW, r))
+        np.add.at(g, ej, np.einsum("eab,eb->ea", JjW, r))
+        rows_l, cols_l, data_l = [], [], []
+        for a, b, blk in ((bi, bi, Hii), (bj, bj, Hjj), (bi, bj, Hij),
+                          (bj, bi, np.swapaxes(Hij, -1, -2))):
+            ok = (a >= 0) & (b >= 0)
+            rr, cc = block_idx(a[ok], b[ok])
+            rows_l.append(rr.ravel())
+            cols_l.append(cc.ravel())
+            data_l.append(blk[ok].ravel())
+        H = sp.coo_matrix(
+            (np.concatenate(data_l),
+             (np.concatenate(rows_l), np.concatenate(cols_l))),
+            shape=(3 * nf, 3 * nf)).tocsc()
+        Hd = H + sp.diags(H.diagonal() * lam + 1e-12)
+        try:
+            step = spla.spsolve(Hd, -g[fidx].ravel())
+        except RuntimeError:  # a failed factorization: a zero step
+            step = np.zeros(3 * nf)
+        if not np.all(np.isfinite(step)):
+            step = np.zeros(3 * nf)
+        sq = float(step @ step)
+        cand = p.copy()
+        cand[fidx] += step.reshape(-1, 3)
+        cand[:, 2] = np.arctan2(np.sin(cand[:, 2]), np.cos(cand[:, 2]))
+        cn = cost(cand)
+        if sq < sq_min_delta:
+            break
+        if cn < c:
+            p, c = cand, cn
+            lam *= 0.5
+            good += 1
+        else:
+            lam *= laminc
+            laminc *= 2.0
+    return p, cost0, c, good, it
+
+
 _UNPORTED = {
-    "schur": "the Schur-complement solve is not ported yet (ROADMAP queue 1, "
-             "item 13)",
-    "host_f64": "graph does not band: the host f64 sparse-direct LM "
-                "(_host_direct_lm) is not ported yet (ROADMAP queue 1, item 5)",
+    "f64_schur": "the device f64 Schur solve (host_direct_fallback=False) "
+                 "is not ported yet (ROADMAP queue 1, item 7)",
+    "schur": "the Schur-complement solve (use_schur) is not ported yet "
+             "(ROADMAP queue 1, item 7)",
     "cg_restarts": "restarted CG (cg_restarts > 1) is not ported yet (ROADMAP "
-                   "queue 1, item 5)",
+                   "queue 1, item 3)",
 }
 
 
@@ -137,24 +247,25 @@ def _fused_shapes_fit(num_nodes: int, num_edges: int) -> bool:
 def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
            band_spec=lambda: None) -> str:
     """The solve route of a graph of ``num_nodes`` nodes and ``num_edges``
-    edges on ``device``: "dense", "pcg" or "direct", or the name of an
-    unported route ("schur", "host_f64", "cg_restarts"). ``band_spec()`` is
-    called only for a graph above ``use_dense_below`` and says whether it
-    bands (None: it does not). Small graphs follow the reference's TPU
-    conditions for its fused kernel (``tpu_slam/solver/pose_graph.py:
-    1008-1030``) on ``cuda``."""
+    edges on ``device``: "dense", "pcg", "direct" or "host_f64", or the
+    name of an unported route ("f64_schur", "schur", "cg_restarts").
+    ``band_spec()`` is called only for a graph above ``use_dense_below`` and
+    says whether it bands (None: it does not). Small graphs follow the
+    reference's TPU conditions for its fused kernel
+    (``tpu_slam/solver/pose_graph.py:1008-1030``) on ``cuda``; larger ones
+    its order (``:939-945``, ``:964-984``, then ``:1008-1038``)."""
     if num_nodes <= cfg.use_dense_below:
         kernel = (torch.device(device).type == "cuda"
                   and cfg.use_fused_kernel and cfg.cg_restarts <= 1
                   and not cfg.use_schur
                   and _fused_shapes_fit(num_nodes, num_edges))
         return "pcg" if kernel else "dense"
-    if cfg.use_schur:
-        return "schur"
-    if cfg.use_direct and band_spec() is not None:
+    if cfg.use_direct and not cfg.use_schur and band_spec() is not None:
         return "direct"
     if cfg.f64_schur_above > 0 and num_nodes >= cfg.f64_schur_above:
-        return "host_f64"
+        return "host_f64" if cfg.host_direct_fallback else "f64_schur"
+    if cfg.use_schur:
+        return "schur"
     if cfg.cg_restarts > 1:
         return "cg_restarts"
     return "pcg"
@@ -172,14 +283,15 @@ class PoseGraphSolver:
     The ScanSolver surface: ``add_node(s)``, ``add_constraint(s)``
     (information = covariance⁻¹ computed here), ``compute`` =
     doSPA(max_iterations) plus the corrections harvest. Poses and edges
-    are kept on the host in float64; each solve uploads them to
-    ``device`` in float32."""
+    are kept on the host in float64; each device solve uploads them to
+    ``device`` in float32, and the host f64 arm solves them where they
+    are."""
 
     def __init__(self, cfg: SolverConfig, device=DEFAULT_DEVICE, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "the graph-parallel LM over a mesh is not ported yet "
-                "(ROADMAP queue 1, item 11: multi-device layer)"
+                "(ROADMAP queue 1, item 6: multi-device layer)"
             )
         self.cfg = cfg
         self.device = torch.device(device)
@@ -272,6 +384,8 @@ class PoseGraphSolver:
             return self._compute_pcg(iters)
         if route == "direct":
             return self._compute_direct(iters, self._band_spec())
+        if route == "host_f64":
+            return self._compute_host_f64(iters)
         raise NotImplementedError(_UNPORTED[route])
 
     def _edge_arrays(self):
@@ -309,9 +423,20 @@ class PoseGraphSolver:
         )
         return PendingSolve(self, packed)
 
+    def _compute_host_f64(self, iters: int) -> "PendingSolve":
+        """The host f64 arm: its result packed as a float64 (8, M) tensor on
+        the CPU, so that the harvest does not round it to float32."""
+        ei, ej, means, infos = self._edge_arrays()
+        free = np.ones(self.num_nodes, bool)
+        free[0] = False  # node 0 is the gauge (nFixed=1)
+        p, cost0, cost, good, it = _host_direct_lm(
+            np.asarray(self._poses), ei, ej, means, infos, free, iters,
+            self.cfg.initial_lambda, float(self.cfg.convergence_delta))
+        return PendingSolve(self, pack(torch.from_numpy(p.T.copy()), cost0,
+                                       cost, good, it))
+
     def _band_spec(self):
-        """RCM band spec of the graph, None if it does not band; raises
-        for a band past the single-launch CR size."""
+        """RCM band spec of the graph, None if it does not band."""
         ei, ej, _m, _i = self._edge_arrays()
         key = (banded.spec_cache_key(ei, ej, np.ones(len(ei), bool),
                                      self.num_nodes),
@@ -321,13 +446,7 @@ class PoseGraphSolver:
                 _SPEC_CACHE.clear()
             _SPEC_CACHE[key] = banded.prepare_banded(
                 ei, ej, self.num_nodes, self.cfg.direct_max_bandwidth)
-        spec = _SPEC_CACHE[key]
-        if spec is not None and spec.K > K_MAX:
-            raise NotImplementedError(
-                f"K={spec.K} supernodes: the streamed CR pipeline "
-                "(streamed_cr_lm) is not ported yet (ROADMAP queue 2, item 3)"
-            )
-        return spec
+        return _SPEC_CACHE[key]
 
     def direct_inputs(self, spec=None):
         """The cyclic-reduction route's inputs: the RCM band spec (host),
@@ -363,8 +482,12 @@ class PoseGraphSolver:
         return spec, pT8, slots
 
     def _compute_direct(self, iters: int, spec) -> "PendingSolve":
+        """The CR-LM: the single-launch kernel up to ``K_MAX`` supernodes,
+        the streamed pipeline above (the reference's split, kept so that
+        both can be timed on the same graphs)."""
         spec, pT8, slots = self.direct_inputs(spec)
-        out = fused_cr_lm(
+        solve = fused_cr_lm if spec.K <= K_MAX else streamed_cr_lm
+        out = solve(
             pT8, slots, self.cfg.initial_lambda, W=spec.W, K=spec.K,
             iters=iters,
             sq_min_delta=_sq_min_delta(self.cfg.convergence_delta))
