@@ -11,9 +11,12 @@ and nothing of the JAX package. Phases, each printing its own line(s):
   3. the PL-ICP kernel against its plain version on 512 scan pairs of 360
      beams (the bench PL-ICP batch), with both times;
   4. the CR-LM kernel against its plain version on the 1,024-node bench
-     pose graph, with both times, then all three kernels against their
-     plain versions on edge cases (odd beam counts, N ≠ M, invalid and
-     non-finite beams, W = 2 and 6, K = 32 and 128, a 3-node graph);
+     pose graph, with both times and the solve's dependent steps (LM
+     iterations × levels) and time per step, then all three kernels
+     against their plain versions on edge cases (odd beam counts, N ≠ M,
+     invalid and non-finite beams; the CR-LM's launch geometry at W = 1,
+     2, 6 and 8, K = 32 (one block), 128, 256 and 512 (W 8 × K 512: the
+     largest shared-memory slices); a 3-node graph);
   5. the main path, with the launch counters zeroed first: the offline
      Karto mission (3 laps of the corridor world, 360 beams) through
      ``offline_slam``, then the bench pose graph through
@@ -26,7 +29,12 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      chain poses and trajectory within tolerance, the same accept flags
      and selected rows from the loop selector, with both times;
   7. the PCG-LM kernel against its plain version on the mission's
-     loop-closed graph, with both times;
+     loop-closed graph, with both times and the PCG iterations run (the
+     dependent steps) and time per step; then at the ends of its route:
+     129 nodes (one block), the 2,999-node chain with skip edges (six
+     blocks, the most nodes under ``f64_schur_above``) and the same at
+     9,000 nodes with ``f64_schur_above`` off (the device-memory
+     variant);
   8. the mission's scans/s (median of 3 runs after the warm one);
   9. one mission under ``torch.profiler``: device busy time, idle share
      and each kernel's device time per launch;
@@ -88,7 +96,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      cases (W = 2, W = 8, 32,768 nodes), with both times, the kernels it
      enqueues and the bound; then both CR-LM kernels on the same graphs
      (the bench graph at K 256, a 3,072-node ring at K 512), with both
-     times;
+     times and both times per dependent step;
  21. the large-graph main path, with the launch counters zeroed first:
      ``PoseGraphSolver.compute`` on the 4,096- and 16,384-node rings, each
      one streamed-kernel launch and no other, χ² → ~0; their solve ms
@@ -154,7 +162,7 @@ from tpu_slam_torch.parallel.distributed_step import (
     _chain_matcher, _gather_scan, _loop_selector, _match_fn,
     make_chain_matcher, make_loop_selector,
 )
-from tpu_slam_torch.solver import banded
+from tpu_slam_torch.solver import banded, cr_lm, pcg_lm
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
 from tpu_slam_torch.solver.cr_stream import streamed_cr_lm
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
@@ -373,21 +381,73 @@ def phase_cr(dev) -> dict:
     ok = (bool(torch.isfinite(k).all()) and dpose <= LM_POSE_TOL
           and abs(kc - pc) <= LM_COST_RTOL * abs(pc))
     ms, plain_ms = cuda_ms(kern, 3), cuda_ms(plain, 2)
-    # per LM iteration, per supernode of n = 3W: Cholesky n³/3,
-    # D⁻¹[Bprevᵀ | B | r] ~4n³ and the two Schur updates ~4n³
-    n = 3 * spec.W
     iters = int(k[3, 3])
-    work = bound(4 * (2 * pT8.numel() + slots.numel()),
-                 iters * (lm_edge_flops(len(edges))
-                          + spec.K * (n ** 3 / 3 + 8 * n ** 3)))
-    print(f"cr_lm: nodes={len(poses)} W={spec.W} K={spec.K} pose max|d|="
-          f"{dpose:.3e} cost0 {float(k[3, 0]):.6g} cost kernel {kc:.6g} plain "
-          f"{pc:.6g} iters kernel {iters} plain {int(p[3, 3])} kernel "
-          f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {work['bound_ms']:.5f} "
-          f"ms ({work['bound_by']})", flush=True)
+    work = cr_work(spec, pT8, slots, len(edges), iters)
+    steps = cr_steps(spec.K, iters)
+    print(f"cr_lm: nodes={len(poses)} W={spec.W} K={spec.K} geometry "
+          f"{cr_geometry(spec.W, spec.K)} pose max|d|={dpose:.3e} cost0 "
+          f"{float(k[3, 0]):.6g} cost kernel {kc:.6g} plain {pc:.6g} iters "
+          f"kernel {iters} plain {int(p[3, 3])} kernel {ms:.3f} ms plain "
+          f"{plain_ms:.3f} ms bound {work['bound_ms']:.5f} ms "
+          f"({work['bound_by']}); dependent steps {steps} (LM iterations × "
+          f"levels), {ms / steps * 1e3:.3f} µs a step", flush=True)
     if not ok:
         raise AssertionError("CR-LM kernel disagrees with its plain version")
     return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def cr_steps(K: int, iters: int) -> int:
+    """The CR-LM solve's dependent steps: LM iterations × CR levels."""
+    return max(iters, 1) * (K.bit_length() - 1)
+
+
+def cr_geometry(W: int, K: int) -> str:
+    blocks, warps, smem = cr_lm.launch_geometry(W, K)
+    return f"{blocks} blocks x {warps} warps, {smem} B shared"
+
+
+def chain_banded(n: int, W: int, seed: int):
+    """A noisy odometry chain of ``n`` nodes (skip_graph without skips, the
+    guess perturbed) packed at band ``W`` (the packer's buckets start at
+    2, so the spec is built with its bucket lifted): (spec, init, means,
+    infos) for the CR-LM kernel at W = 1."""
+    init, edges = skip_graph(n, strides=(), seed=seed)
+    rng = np.random.default_rng(seed)
+    init = init + rng.normal(0, 0.02, init.shape) * (np.arange(n) > 0)[:, None]
+    ei = np.array([e[0] for e in edges])
+    ej = np.array([e[1] for e in edges])
+    bucket = banded._bucket_w
+    banded._bucket_w = lambda w: max(w, W)
+    try:
+        spec = banded.prepare_banded(ei, ej, n, min_k=32)
+    finally:
+        banded._bucket_w = bucket
+    means = np.stack([e[2] for e in edges]).astype(np.float32)
+    infos = np.stack([e[3] for e in edges]).astype(np.float32)
+    return spec, init.astype(np.float32), means, infos
+
+
+def exact_chain(n: int, strides, every: bool, seed: int = 0):
+    """An open chain of ``n`` nodes on three quarters of a circle of 10 m:
+    an edge from every node to the next and, for each s in ``strides``,
+    to the s-th next from every node (``every``) or from every s-th node;
+    exact measurements (χ² → 0 at the optimum, as on bench_solver's
+    rings), each pose but the first perturbed by N(0, (5 cm, 5 cm, 0.01))
+    as the guess, information diag(50, 50, 100). With ``every`` it bands
+    at W = max(strides) rounded up to the packer's bucket; with skips
+    every 32 nodes it does not band. Returns (init, edges)."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 1.5 * np.pi, n)
+    gt = np.stack([10 * np.cos(th), 10 * np.sin(th), th + np.pi / 2], -1)
+    init = gt + rng.normal(0, [0.05, 0.05, 0.01], (n, 3)) * (
+        np.arange(n) > 0)[:, None]
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    for s in strides:
+        pairs += [(i, i + s) for i in range(0, n - s, 1 if every else s)]
+    ei, ej = np.array(pairs).T
+    info = np.diag([50.0, 50.0, 100.0])
+    return init, [(i, j, m, info) for i, j, m in
+                  zip(ei, ej, gnp.relative(gt[ei], gt[ej]))]
 
 
 def _ring_edges(n, stride, rng):
@@ -433,10 +493,23 @@ def phase_edge_cases(dev) -> None:
             and int(k.num_inliers[0]) == 0):
         raise AssertionError("PL-ICP kernel edge cases disagree")
     # CR-LM: a plain ring bands at W = 2 (K = 128), a ring with cross
-    # closures at W = 6 (K = 32 with min_k = 32)
+    # closures at W = 6 (K = 32 with min_k = 32, the smallest cluster: one
+    # block), a chain at W = 1 (K = 256), and a 4,000-node chain with an
+    # edge to the 7th node on from every node at W = 8, K = 512 (the
+    # largest slices: 16 warps of 11,712 B a block)
+    cases = []
     for n, stride, min_k in ((200, 0, 128), (72, 8, 32)):
         init, ei, ej, means, infos = _ring_edges(n, stride, rng)
-        spec = banded.prepare_banded(ei, ej, n, min_k=min_k)
+        cases.append((banded.prepare_banded(ei, ej, n, min_k=min_k), init,
+                      means, infos))
+    cases.append(chain_banded(200, 1, seed=5))
+    init, edges = exact_chain(4000, (7,), every=True)
+    cases.append((banded.prepare_banded([e[0] for e in edges],
+                                        [e[1] for e in edges], 4000),
+                  init, np.stack([e[2] for e in edges]).astype(np.float32),
+                  np.stack([e[3] for e in edges]).astype(np.float32)))
+    for spec, init, means, infos in cases:
+        n = len(init)
         pT8 = torch.as_tensor(banded.flat_poses_np(spec, init), device=dev)
         slots = torch.as_tensor(banded.build_slots_np(spec, means, infos),
                                 device=dev)
@@ -445,8 +518,10 @@ def phase_edge_cases(dev) -> None:
         p = cr_lm_plain(pT8, slots, 1e-4, **kw)
         dpose = float((k[0:3] - p[0:3]).abs().max())
         kc, pc = float(k[3, 1]), float(p[3, 1])
-        print(f"edge cr_lm: nodes={n} W={spec.W} K={spec.K} pose max|d|="
-              f"{dpose:.3e} cost kernel {kc:.6g} plain {pc:.6g}", flush=True)
+        print(f"edge cr_lm: nodes={n} W={spec.W} K={spec.K} geometry "
+              f"{cr_geometry(spec.W, spec.K)} pose max|d|={dpose:.3e} cost0 "
+              f"{float(k[3, 0]):.6g} cost kernel {kc:.6g} plain {pc:.6g} "
+              f"iters {int(k[3, 3])} / {int(p[3, 3])}", flush=True)
         if not (dpose <= LM_POSE_TOL
                 and abs(kc - pc) <= LM_COST_RTOL * abs(pc) + 1e-6):
             raise AssertionError("CR-LM kernel edge case disagrees")
@@ -661,18 +736,13 @@ def phase_mission_batches(cfg, T: int, batches) -> None:
                              "differently")
 
 
-def phase_pcg(dev, res) -> dict:
-    """PCG-LM kernel vs plain on the mission's loop-closed graph, started
-    from the raw chain."""
-    cfg = res.solver.cfg
-    _poses, ei, ej, means, infos, free = res.solver.device_graph()
-    M = len(free)
-    args = (torch.as_tensor(res.chain_poses, dtype=torch.float32, device=dev),
-            ei, ej, means, infos, torch.ones_like(ei, dtype=torch.bool), free,
-            cfg.initial_lambda)
-    kw = dict(iters=cfg.max_iterations, cg_iters=cfg.cg_iterations,
-              cg_tol=cfg.cg_tolerance,
-              sq_min_delta=_sq_min_delta(cfg.convergence_delta))
+def pcg_compare(label: str, dev, args, kw, reps: int = 3) -> dict:
+    """The PCG-LM kernel against its plain version on ``fused_lm_solve``'s
+    arguments: poses within LM_POSE_TOL, final χ² within LM_COST_RTOL.
+    Prints both times (the plain version's over ``min(reps, 2)`` runs),
+    the variant (hot set in shared memory or device memory), the PCG
+    iterations the solve ran (the dependent steps) and the time of each,
+    and the bound; returns them with max_abs_err."""
 
     def kern():
         return fused_lm_solve(*args, **kw)[5]
@@ -682,26 +752,89 @@ def phase_pcg(dev, res) -> dict:
 
     k, p = kern(), plain()
     torch.cuda.synchronize()
-    dpose = float((k[0:3] - p[0:3]).abs().max())
-    kc, pc = float(k[3, 1]), float(p[3, 1])
+    M, E = args[0].shape[0], args[1].shape[0]
+    dpose = float((k[0:3, :M] - p[0:3, :M]).abs().max())
+    c0, kc, pc = float(k[3, 0]), float(k[3, 1]), float(p[3, 1])
+    # χ² as streamed_compare holds it: within LM_COST_RTOL, or both ~0
     ok = (bool(torch.isfinite(k).all()) and dpose <= LM_POSE_TOL
-          and abs(kc - pc) <= LM_COST_RTOL * abs(pc))
-    ms, plain_ms = cuda_ms(kern, 3), cuda_ms(plain, 2)
+          and (abs(kc - pc) <= LM_COST_RTOL * abs(pc) + 1e-6
+               or max(kc, pc) <= 1e-6 * c0))
+    ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, min(reps, 2))
     # per LM iteration the edge work and ~60 FLOPs per node (damping, the
     # 3×3 preconditioner inverse); per PCG iteration two 3×3 block
     # products per edge (36) and ~60 per node (diagonal block, the
     # preconditioner, three dot products and three updates)
-    E, iters, cg = len(ei), int(k[3, 3]), int(k[4, 0])
+    iters, cg = int(k[3, 3]), int(k[4, 0])
     work = bound(12 * M + 16 * E + 48 * E + E + M + k.numel() * 4,
                  iters * (lm_edge_flops(E) + 60 * M) + cg * (36 * E + 60 * M))
-    print(f"pcg_lm: nodes={M} edges={E} pose max|d|={dpose:.3e} cost0 "
-          f"{float(k[3, 0]):.6g} cost kernel {kc:.6g} plain {pc:.6g} iters "
-          f"kernel {iters} plain {int(p[3, 3])} PCG iterations {cg} kernel "
+    blocks, logS, _qmax, smem = pcg_lm.launch_geometry(pcg_lm._incidence(
+        args[1].cpu().numpy(), args[2].cpu().numpy(), M)[0])
+    variant = (f"{blocks} blocks of {1 << logS} nodes, hot set in "
+               + (f"shared memory ({smem} B a block)" if smem
+                  else "device memory"))
+    print(f"{label}: nodes={M} edges={E} {variant} pose max|d|="
+          f"{dpose:.3e} cost0 {c0:.6g} cost kernel {kc:.6g} "
+          f"plain {pc:.6g} iters kernel {iters} plain {int(p[3, 3])}; kernel "
           f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {work['bound_ms']:.5f} "
-          f"ms ({work['bound_by']})", flush=True)
+          f"ms ({work['bound_by']}); dependent steps {cg} PCG iterations, "
+          f"{ms / max(cg, 1) * 1e3:.3f} µs a step", flush=True)
     if not ok:
-        raise AssertionError("PCG-LM kernel disagrees with its plain version")
+        raise AssertionError(f"{label}: the PCG-LM kernel disagrees with its "
+                             "plain version")
     return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def pcg_args(dev, solver, poses=None):
+    """``fused_lm_solve``'s arguments and settings for a solver's graph,
+    started from ``poses`` (the solver's own when None)."""
+    cfg = solver.cfg
+    dposes, ei, ej, means, infos, free = solver.device_graph()
+    if poses is not None:
+        dposes = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    args = (dposes, ei, ej, means, infos,
+            torch.ones_like(ei, dtype=torch.bool), free, cfg.initial_lambda)
+    kw = dict(iters=cfg.max_iterations, cg_iters=cfg.cg_iterations,
+              cg_tol=cfg.cg_tolerance,
+              sq_min_delta=_sq_min_delta(cfg.convergence_delta))
+    return args, kw
+
+
+def phase_pcg(dev, res) -> dict:
+    """PCG-LM kernel vs plain on the mission's loop-closed graph, started
+    from the raw chain."""
+    return pcg_compare("pcg_lm", dev, *pcg_args(dev, res.solver,
+                                                  res.chain_poses))
+
+
+def phase_pcg_edges(dev) -> None:
+    """The PCG-LM kernel against its plain version at the ends of its
+    route: a 129-node ring with cross closures (the fewest nodes the card
+    sends it: one block), a 2,999-node chain with skip edges every 8 and
+    32 nodes that does not band (the most nodes under ``f64_schur_above``:
+    six blocks), and the same chain at 9,000 nodes with
+    ``f64_schur_above`` off, whose node ranges do not fit shared memory
+    and take the device-memory variant."""
+    cfg = SolverConfig()
+    init, ei, ej, means, infos = _ring_edges(129, 4, np.random.default_rng(31))
+    cases = [("edge pcg_lm ring", cfg, solver_from_numpy(
+        cfg, init, list(zip(ei, ej, means, infos)), dev))]
+    for n, c in ((2999, cfg), (9000, dataclasses.replace(cfg,
+                                                          f64_schur_above=0))):
+        cases.append((f"edge pcg_lm skip chain {n}", c, solver_from_numpy(
+            c, *exact_chain(n, (8, 32), every=False), dev)))
+    variants = []
+    for label, c, s in cases:
+        route = _route(s.num_nodes, s.num_edges, dev, c, s._band_spec)
+        if route != "pcg":
+            raise AssertionError(f"{label}: routed to {route}, not the "
+                                 "PCG-LM kernel")
+        args, kw = pcg_args(dev, s)
+        pcg_compare(label, dev, args, kw, reps=2)
+        variants.append(pcg_lm.launch_geometry(pcg_lm._incidence(
+            args[1].cpu().numpy(), args[2].cpu().numpy(), s.num_nodes)[0])[3])
+    if not (variants[0] and variants[1] and variants[2] == 0):
+        raise AssertionError("PCG-LM edge cases: the variants are not "
+                             "shared, shared, device memory")
 
 
 def phase_mission_rate(cfg, scans, odom) -> None:
@@ -1900,10 +2033,13 @@ def phase_cr_both(dev) -> None:
         c0, ca, cb = float(a[3, 0]), float(a[3, 1]), float(b[3, 1])
         converged = max(int(a[3, 3]), int(b[3, 3])) < cfg.max_iterations
         ms_a, ms_b = cuda_ms(single, 2), cuda_ms(streamed, 3)
+        sa, sb = cr_steps(spec.K, int(a[3, 3])), cr_steps(spec.K, int(b[3, 3]))
         print(f"cr_lm and cr_stream on the {label}: nodes={len(poses)} "
               f"W={spec.W} K={spec.K} pose max|d|={d:.3e} cost0 {c0:.6g} "
               f"cost {ca:.6g} / {cb:.6g} iters {int(a[3, 3])} / "
-              f"{int(b[3, 3])}; cr_lm {ms_a:.3f} ms cr_stream {ms_b:.3f} ms",
+              f"{int(b[3, 3])}; cr_lm {ms_a:.3f} ms cr_stream {ms_b:.3f} ms; "
+              f"dependent steps (LM iterations × levels) {sa} / {sb}, "
+              f"{ms_a / sa * 1e3:.3f} / {ms_b / sb * 1e3:.3f} µs a step",
               flush=True)
         if not ((d <= LM_POSE_TOL or not converged)
                 and (max(ca, cb) <= 1e-6 * c0
@@ -2051,6 +2187,7 @@ def main() -> None:
     cfg, scans, odom, res, launches, batches = phase_main_path(dev)
     phase_mission_batches(cfg, res.poses.shape[0], batches)
     pcg = phase_pcg(dev, res)
+    phase_pcg_edges(dev)
     phase_mission_rate(cfg, scans, odom)
     phase_profile(cfg, scans, odom)
     clock("mission")

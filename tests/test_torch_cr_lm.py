@@ -127,25 +127,97 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 
 def test_kernel_launch_bound_is_the_route_split():
-    # the route sends K ≤ K_MAX supernodes to the kernel, one thread each:
-    # the kernel must be compiled for that many threads a block (without
-    # the bound its registers kept 512 threads from launching)
+    # the route sends K ≤ K_MAX supernodes to the kernel, one cluster of
+    # warps, a warp per active supernode: the kernel must be compiled for
+    # the most threads a block of the geometry takes, and its limits must
+    # be the wrapper's
     import re
 
     from tpu_slam_torch import _build
 
     src = (_build.CSRC / "cr_lm.cu").read_text()
-    assert re.search(r"constexpr int K_MAX = (\d+);", src)[1] == str(cr_lm.K_MAX)
-    assert "__launch_bounds__(K_MAX) cr_lm_kernel" in src
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("K_MAX") == cr_lm.K_MAX
+    assert const("MAX_WARPS") == cr_lm.MAX_WARPS
+    assert const("MAX_CLUSTER") == cr_lm.MAX_CLUSTER
+    assert "constexpr int MAX_THREADS = 32 * MAX_WARPS;" in src
+    assert "__launch_bounds__(MAX_THREADS, 1)" in src
+    assert "launch_cluster(" in src  # csrc/cluster.cuh: one cluster
+    assert "cudaLaunchAttributeClusterDimension" in (
+        _build.CSRC / "cluster.cuh").read_text()
+    assert "<<<" not in src  # no plain launch: the cluster launch only
+    widest = max(cr_lm.launch_geometry(W, K)[1]
+                 for W in range(1, 9) for K in (32, 64, 128, 256, 512))
+    assert widest <= cr_lm.MAX_WARPS
 
 
 def test_kernel_scratch_size_covers_the_layout():
-    # P, C (3·WK each), D, B, X1, X2 (n²K each), r, Xr, x (nK each) and the
-    # high-node staging rows — the layout csrc/cr_lm.cu carves up
+    # P, C (3·WK each), D, B, X1, X2 (n²K each, a supernode's block
+    # contiguous), r, Xr, x (nK each) and the high-node staging rows — the
+    # layout csrc/cr_lm.cu carves up
     W, K = 4, 256
     n = 3 * W
     assert cr_lm.scratch_floats(W, K) == (
         6 * W * K + 4 * n * n * K + 3 * n * K + 2 * W * 12 * W * K)
+    from tpu_slam_torch import _build
+
+    src = (_build.CSRC / "cr_lm.cu").read_text()
+    assert "return 5 * n * n + 2 * n;" in src  # warp_floats
+    for W in range(1, 9):
+        n = 3 * W
+        assert cr_lm.warp_smem_bytes(W) == 4 * (5 * n * n + 2 * n)
+        # the elimination (factor, 2n + 1 right-hand sides, pivots) and
+        # the back-substitution (2n² + 2n) fit the survivor's slice
+        assert 4 * (n * (n | 1) + n * (2 * n + 1) + n) \
+            <= cr_lm.warp_smem_bytes(W)
+        assert 4 * (2 * n * n + 2 * n) <= cr_lm.warp_smem_bytes(W)
+
+
+@pytest.mark.parametrize("K", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("W", range(1, 9))
+def test_launch_geometry_fits_the_card_and_covers_a_level(W, K):
+    blocks, warps, smem = cr_lm.launch_geometry(W, K)
+    assert 1 <= blocks <= cr_lm.MAX_CLUSTER  # one portable cluster
+    assert 1 <= warps <= cr_lm.MAX_WARPS and 32 * warps <= 1024
+    assert smem == warps * cr_lm.warp_smem_bytes(W)
+    assert smem + cr_lm.SMEM_STATIC_RESERVE <= 232_448  # 227 KB a block
+    # the kernel's strided loop gives each of a level's K/2 eliminations
+    # to exactly one warp, in at most four rounds (K = 512); the cluster
+    # is as wide as it may be before a warp takes two
+    nwarps = blocks * warps
+    owners = [j % nwarps for j in range(K // 2)]
+    assert sorted(set(owners)) == list(range(min(nwarps, K // 2)))
+    assert -(-(K // 2) // nwarps) <= 4
+    assert nwarps >= min(K // 2, cr_lm.MAX_CLUSTER * cr_lm.MAX_WARPS)
+    # assembly: each block an even chunk of the W·K flat lanes, at most
+    # four a thread
+    assert 4 * nwarps * 32 >= W * K
+
+
+def test_refused_launch_raises(monkeypatch):
+    # a launch the card refuses comes back from cr_lm_launch as a non-zero
+    # cudaError_t (here cudaErrorLaunchOutOfResources), and the wrapper's
+    # launcher raises: nothing falls back to the plain version
+    from tpu_slam_torch import _build
+
+    class Lib:
+        @staticmethod
+        def cr_lm_launch(*args):
+            return 701
+
+    monkeypatch.setitem(_build._LIBS, "cr_lm", Lib())
+    with pytest.raises(RuntimeError, match="cr_lm kernel launch failed"):
+        _build.launch("cr_lm", *range(13))
+
+
+@pytest.mark.parametrize("W,K", [(0, 64), (9, 64), (4, 16), (4, 1024),
+                                 (4, 96)])
+def test_wrapper_refuses_what_the_kernel_does_not_take(W, K):
+    with pytest.raises(ValueError, match="CR-LM kernel takes"):
+        cr_lm.check_launch(W, K)
 
 
 @pytest.mark.slow

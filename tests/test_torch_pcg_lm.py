@@ -110,3 +110,132 @@ def test_incidence_lists_every_edge_end_once():
             e, role = code >> 1, code & 1
             assert (ej if role else ei)[e] == m
     assert sorted(inc.tolist()) == list(range(10))
+
+
+def _csr_matvec(Hd, Hij, ei, ej, fm, p):
+    """The kernel's node-centric matvec in numpy: node m sums D_m p_m and,
+    in CSR order, H_ij p_j (m = i) or H_ijᵀ p_i (m = j), masked as
+    cg_matvec masks."""
+    M = len(fm)
+    row_ptr, inc = pcg_lm._incidence(ei, ej, M)
+    x = p * fm[:, None]
+    y = np.zeros_like(p)
+    for m in range(M):
+        acc = Hd[m] @ x[m]
+        for code in inc[row_ptr[m]:row_ptr[m + 1]]:
+            e, role = code >> 1, code & 1
+            acc = acc + (Hij[e].T @ x[ei[e]] if role else Hij[e] @ x[ej[e]])
+        y[m] = acc
+    return y * fm[:, None] + x * (1.0 - fm[:, None])
+
+
+def test_node_centric_matvec_matches_dense_product(ring):
+    rng = np.random.default_rng(5)
+    M, E = len(ring["p"]), len(ring["ei"])
+    A = rng.normal(size=(M, 3, 3))
+    Hd = A @ A.transpose(0, 2, 1) + 3 * np.eye(3)
+    Hij = rng.normal(size=(E, 3, 3))
+    ei, ej = ring["ei"], ring["ej"]
+    fm = ring["free"].astype(np.float64)
+    H = np.zeros((3 * M, 3 * M))
+    for m in range(M):
+        H[3 * m:3 * m + 3, 3 * m:3 * m + 3] = Hd[m]
+    for e in range(E):
+        i, j = 3 * ei[e], 3 * ej[e]
+        H[i:i + 3, j:j + 3] += Hij[e]
+        H[j:j + 3, i:i + 3] += Hij[e].T
+    F = np.repeat(fm, 3)
+    # cg_matvec masks p before the product, so a fixed node's rows and
+    # columns are zero (its residual is zero, so CG never moves it)
+    Hg = H * F[:, None] * F[None, :]
+    p = rng.normal(size=(M, 3))
+    np.testing.assert_allclose(_csr_matvec(Hd, Hij, ei, ej, fm, p),
+                               (Hg @ p.reshape(-1)).reshape(M, 3),
+                               rtol=1e-12, atol=1e-12)
+
+
+def _chain_graph(n, strides=(8, 32)):
+    """chip_smoke.exact_chain's edges at n nodes: a chain and skip edges
+    every s nodes for each s in ``strides`` (it does not band)."""
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    for s in strides:
+        pairs += [(i, i + s) for i in range(0, n - s, s)]
+    ei, ej = np.array(pairs).T
+    return ei, ej
+
+
+@pytest.mark.parametrize("M,variant,blocks", [
+    (1056, "shared", 5),  # the offline mission's loop-closed graph size
+    (129, "shared", 1),  # the fewest nodes the card's route sends it
+    (2999, "shared", 6),  # the most under f64_schur_above, over 6 SMs
+    (9000, "device", 5),  # past f64_schur_above (a route with it off)
+])
+def test_variant_choice_by_hot_set_size(M, variant, blocks):
+    ei, ej = _chain_graph(M)
+    row_ptr, _inc = pcg_lm._incidence(ei, ej, M)
+    nb, logS, qmax, smem = pcg_lm.launch_geometry(row_ptr)
+    assert nb == blocks
+    assert (smem > 0) == (variant == "shared")
+    if smem:
+        assert smem == pcg_lm.hot_set_bytes(1 << logS, qmax)
+        assert smem + pcg_lm.SMEM_STATIC_RESERVE <= pcg_lm.SMEM_PER_BLOCK
+    else:
+        assert pcg_lm.hot_set_bytes(1 << logS, qmax) \
+            + pcg_lm.SMEM_STATIC_RESERVE > pcg_lm.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("M", [1, 3, 255, 256, 257, 1056, 2048, 2049, 8192,
+                               8193, 20000])
+def test_launch_geometry_cuts_the_nodes_into_block_ranges(M):
+    ei, ej = _chain_graph(max(M, 2), strides=(3,))
+    ei, ej = ei[ej < M], ej[ej < M]
+    row_ptr, _inc = pcg_lm._incidence(ei, ej, M)
+    blocks, logS, qmax, smem = pcg_lm.launch_geometry(row_ptr)
+    S = 1 << logS
+    assert 1 <= blocks <= pcg_lm.MAX_CLUSTER
+    assert S >= pcg_lm.MIN_NODES_PER_BLOCK
+    assert (blocks - 1) * S < M <= blocks * S  # no empty block
+    ranges = [(b * S, min((b + 1) * S, M)) for b in range(blocks)]
+    assert qmax == max(row_ptr[e] - row_ptr[s] for s, e in ranges)
+    assert smem in (0, pcg_lm.hot_set_bytes(S, qmax))
+
+
+def test_hot_set_and_scratch_follow_the_kernel_layout():
+    # pcg_lm.cu's hot_words and the scratch it carves
+    from tpu_slam_torch import _build
+
+    src = (_build.CSRC / "pcg_lm.cu").read_text()
+    assert "return 37 * S + 11 * qmax + 1;" in src
+    assert "uv6" not in src  # the node-centric matvec: no edge staging
+    assert "launch_cluster(" in src  # csrc/cluster.cuh: one cluster
+    assert "cudaLaunchAttributeClusterDimension" in (
+        _build.CSRC / "cluster.cuh").read_text()
+    assert "<<<" not in src  # the cluster launch only
+    for name in ("MAX_THREADS", "MAX_CLUSTER"):
+        import re
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src)[1]) \
+            == getattr(pcg_lm, name)
+    S, qmax = 256, 700
+    # x, p, pn, z, r, Ap, the diagonal block and its inverse (4 each as
+    # float4, 2 each as float2) a node; H (9) and (edge and role, other
+    # node) (2) an incidence; the row pointers (S + 1)
+    assert pcg_lm.hot_set_bytes(S, qmax) == 4 * (
+        6 * 4 * S + 2 * 6 * S + 9 * qmax + 2 * qmax + S + 1)
+    M, E, blocks = 1000, 1200, 4
+    # the device-memory hot set (36 floats a node slot, 9 an incidence),
+    # P, C, b3 (3M each), the assembly's Hii6, Hjj6 (6E), bi3, bj3 (3E)
+    assert pcg_lm.scratch_floats(M, E, blocks, S) == (
+        36 * blocks * S + 9 * 2 * E + 9 * M + 18 * E)
+
+
+def test_refused_launch_raises(monkeypatch):
+    from tpu_slam_torch import _build
+
+    class Lib:
+        @staticmethod
+        def pcg_lm_launch(*args):
+            return 1  # cudaErrorInvalidValue: e.g. shared memory short
+
+    monkeypatch.setitem(_build._LIBS, "pcg_lm", Lib())
+    with pytest.raises(RuntimeError, match="pcg_lm kernel launch failed"):
+        _build.launch("pcg_lm", *range(25))

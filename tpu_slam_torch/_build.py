@@ -24,6 +24,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# the H100's limits that the kernels' launch geometry keeps to
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may hold
+SMEM_STATIC_RESERVE = 1_024  # of them, left to a kernel's static arrays
+MAX_CLUSTER = 8  # blocks in a portable thread-block cluster
+
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -40,8 +45,9 @@ SIGNATURES = {
     ),
     "cr_lm": (
         "cr_lm_launch",
-        # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta, stream
-        [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _VP],
+        # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta,
+        # blocks, warps, smem, stream
+        [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _I, _I, _I, _VP],
     ),
     "cr_stream": (
         "cr_stream_launch",
@@ -50,9 +56,11 @@ SIGNATURES = {
     ),
     "pcg_lm": (
         "pcg_lm_launch",
-        # pT, ei, ej, meansT, W6, fm, row_ptr, inc, out, L, scratch, lam0,
-        # M, E, iters, cg_iters, cg_tol, sq_min_delta, stream
-        [_VP] * 9 + [_I, _VP, _F, _I, _I, _I, _I, _F, _F, _VP],
+        # pT, ei, ej, meansT, W6, fm, row_ptr, inc, pos, out, L, scratch,
+        # lam0, M, E, iters, cg_iters, cg_tol, sq_min_delta, blocks, logS,
+        # qmax, smem, stream
+        [_VP] * 10 + [_I, _VP, _F, _I, _I, _I, _I, _F, _F] + [_I] * 4
+        + [_VP],
     ),
     "hector_fused": (
         "hector_fused_launch",

@@ -47,10 +47,19 @@ struct Edge {
   float c, s, drx, dry, r[3];
 };
 
+// A load of a float; with L2 = true through L2 only (ld.global.cg), for
+// data that another block of the cluster wrote since the last barrier.
+template <bool L2>
+__device__ __forceinline__ float load(const float* p) {
+  if constexpr (L2) return __ldcg(p);
+  return *p;
+}
+
 // Residual and Jacobian terms of the edge in slot (bank, d) at flat lane
 // f = a K + k (its low node), poses P (3, WK); false when the slot is
 // empty. Ctx holds the slots (NBANKS * W * SLOT_ROWS, WK), W, K and WK.
-template <class Ctx>
+// L2: read the poses through L2 (see load).
+template <class Ctx, bool L2 = false>
 __device__ bool edge_terms(const Ctx& c, const float* P, int bank, int d,
                            int a, int k, Edge& e) {
   const int f = a * c.K + k;
@@ -67,8 +76,10 @@ __device__ bool edge_terms(const Ctx& c, const float* P, int bank, int d,
   const int fh = (a2 % c.W) * c.K + k2;
   e.flip = sl[(size_t)9 * c.WK] > 0.5f;
   const int fa = e.flip ? fh : f, fb = e.flip ? f : fh;
-  const float ax = P[fa], ay = P[c.WK + fa], at = P[2 * c.WK + fa];
-  const float bx = P[fb], by = P[c.WK + fb], bt = P[2 * c.WK + fb];
+  const float ax = load<L2>(P + fa), ay = load<L2>(P + c.WK + fa);
+  const float at = load<L2>(P + 2 * c.WK + fa);
+  const float bx = load<L2>(P + fb), by = load<L2>(P + c.WK + fb);
+  const float bt = load<L2>(P + 2 * c.WK + fb);
   e.c = cosf(at);
   e.s = sinf(at);
   const float dx = bx - ax, dy = by - ay;

@@ -4,107 +4,203 @@
 // Replaces: tpu_slam/solver/pallas_cr_lm.py::fused_cr_lm (Pallas kernel
 // _make_kernel).
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. One LM step on
-// the mission graph (W = 4, K = 256 supernodes of n = 3W = 12 unknowns) is
-// a few MFLOP, but CR is log2(K) dependent levels, each a chain of small
-// dense n x n Cholesky factorizations, triangular solves and products,
-// and the LM loop is a chain of such steps with a cost reduction and an
-// accept/reject decision between them.
+// What bounds it on the H100: latency, not bytes or FLOPs. The graph on this
+// route (bench.py's 1,024-node pose graph: W = 6, K = 256 supernodes of
+// n = 3W = 18 unknowns) needs a few MFLOP per LM step, but CR is log2(K)
+// dependent levels, each a set of small dense n x n Cholesky
+// factorizations, triangular solves and products, and the LM loop is a
+// chain of such steps with a cost reduction and an accept/reject decision
+// between them. Each level's critical path is one supernode's dense work.
 //
-// Design: one thread block per solve, one thread per supernode lane
-// (K <= K_MAX = 512 threads; the launch bound caps the registers so that
-// 512 threads fit an SM), so every level is one __syncthreads() apart and
-// the LM loop never leaves the kernel. The per-supernode blocks D, B
-// (coupling to the next active supernode), the stored eliminations
-// X1 = D^-1 B_prev^T, X2 = D^-1 B, Xr = D^-1 r and the right-hand sides
-// live in device memory laid out as [row][col][supernode], so the K
-// threads touch consecutive addresses and the ~1-4 MB working set stays in
-// L2. Assembly is per flat lane f = a K + k (node a of supernode k); the
-// contributions that land on another supernode go through a staging array
-// and are gathered by their owner, so every sum has a fixed order and no
-// atomics are needed. The TPU kernel's lane rolls, masked-sublane
-// extraction and VMEM gate are Mosaic workarounds and are not carried over.
+// Design: one thread-block cluster of up to 8 blocks (one per SM, up to 8
+// warps each, so a thread may hold 255 registers and the dense work does
+// not spill; solver/cr_lm.py::launch_geometry sizes it) runs the whole
+// solve, so every dependency is a cluster barrier and the LM loop never
+// leaves the kernel.
+// - A warp per active supernode. The elimination stages D, B_prev^T, B and
+//   r into the warp's slice of shared memory, factors D by n column steps
+//   (lane i owns row i) and solves the 2n+1 right-hand sides of
+//   X1 = D^-1 B_prev^T, X2 = D^-1 B, Xr = D^-1 r with a lane per right-hand
+//   side, its column held in registers (n is a template parameter). The
+//   survivor's three n x n products spread their n^2 outputs over the
+//   lanes, the five operand blocks staged in shared memory together.
+// - Assembly, the candidate step and chi^2 run a thread per flat lane
+//   f = a K + k (node a of supernode k), each block an even, contiguous
+//   chunk of them.
+// - Blocks exchange D, B, X1, X2, r, Xr, x and the poses through device
+//   memory (L2; a supernode's blocks contiguous, so a warp's staging loads
+//   are coalesced), read with ld.global.cg after each cluster barrier. The
+//   chi^2 and ||delta||^2 sums are gathered through distributed shared
+//   memory, every block adding the blocks' partial sums in rank order.
+// Every sum has a fixed order and no atomics are used. The TPU kernel's
+// lane rolls, masked-sublane extraction and VMEM gate are Mosaic
+// workarounds and are not carried over.
 
+#include <cooperative_groups.h>
+
+#include "cluster.cuh"
 #include "cr_edges.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int K_MAX = 512;       // solver/cr_lm.py K_MAX: the route split
+constexpr int MAX_WARPS = 8;     // warps per block (solver/cr_lm.py)
+constexpr int MAX_CLUSTER = 8;   // portable cluster size
+constexpr int MAX_THREADS = 32 * MAX_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared-memory floats of one warp's slice, the most of its three uses:
+// the survivor's five operand blocks and two vectors (5n^2 + 2n); the
+// elimination's factor (n rows of stride n | 1), right-hand sides
+// (n x (2n + 1)) and pivot reciprocals (n) take less, the
+// back-substitution 2n^2 + 2n.
+__host__ __device__ constexpr int warp_floats(int n) {
+  return 5 * n * n + 2 * n;
+}
+
 struct Ctx {
-  int W, K, n, WK;
+  int W, K, WK;
   const float* slots;  // (NBANKS * W * SLOT_ROWS, WK)
   const float* free;   // (WK,)
   float* P;            // (3, WK) current poses
   float* C;            // (3, WK) candidate poses
-  float* D;            // (n, n, K)
-  float* B;            // (n, n, K)
-  float* X1;           // (n, n, K)
-  float* X2;           // (n, n, K)
-  float* r;            // (n, K)
-  float* Xr;           // (n, K)
-  float* x;            // (n, K)
+  float* D;            // (K, n, n)
+  float* B;            // (K, n, n) coupling to the next active supernode
+  float* X1;           // (K, n, n)
+  float* X2;           // (K, n, n)
+  float* r;            // (K, n)
+  float* Xr;           // (K, n)
+  float* x;            // (K, n)
   float* stage;        // (NBANKS * W * STAGE_ROWS, WK)
 };
 
-__device__ __forceinline__ float& M(float* m, const Ctx& c, int i, int j,
-                                    int k) {
-  return m[((size_t)i * c.n + j) * c.K + k];
+__device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
+
+// A barrier over the cluster; its arrive releases and its wait acquires
+// at cluster scope, so it also publishes this thread's device-memory
+// writes to the other blocks.
+__device__ __forceinline__ void cluster_barrier() { cg::this_cluster().sync(); }
+
+// Cluster-wide sum in a fixed order; every thread gets the total. Each
+// block's partial goes to one of two slots (alternating, so that a slot
+// is rewritten only after a later barrier), and every block adds the
+// partials in rank order. Includes a cluster barrier.
+__device__ float cluster_sum(float v, float* red, float* slots, int& parity) {
+  v = block_sum(v, red);
+  float* slot = slots + parity;
+  parity ^= 1;
+  if (threadIdx.x == 0) *slot = v;
+  cluster_barrier();
+  cg::cluster_group cl = cg::this_cluster();
+  float s = 0.f;
+  for (unsigned b = 0; b < cl.num_blocks(); ++b) s += *cl.map_shared_rank(slot, b);
+  return s;
 }
 
-// chi^2 of the whole graph at poses P (sum over this thread's lanes, then
-// over the block).
-__device__ float graph_cost(const Ctx& c, const float* P, float* red) {
-  const int k = threadIdx.x;
+struct Team {  // this thread's place in the cluster
+  int lane, gwarp, nwarps;
+  int f0, f1;  // this thread's first flat lane and the end of its block's
+};
+
+// Flat lanes f0, f0 + blockDim, ... < f1: each block takes an even,
+// contiguous chunk of the W K flat lanes, so every SM shares the work.
+#define FOR_FLAT(f, t) for (int f = (t).f0; f < (t).f1; f += blockDim.x)
+
+// chi^2 of the whole graph at poses P: a thread per flat lane.
+__device__ float graph_cost(const Ctx& c, const float* P, const Team& t,
+                            float* red, float* cslots, int& parity) {
   float acc = 0.f;
   Edge e;
-  for (int a = 0; a < c.W; ++a)
+  FOR_FLAT(f, t) {
+    const int a = f / c.K, k = f % c.K;
     for (int bank = 0; bank < NBANKS; ++bank)
       for (int d = 1; d <= c.W; ++d)
-        if (edge_terms(c, P, bank, d, a, k, e)) acc += edge_cost(e);
-  return block_sum(acc, red);
+        if (edge_terms<Ctx, true>(c, P, bank, d, a, k, e)) acc += edge_cost(e);
+  }
+  return cluster_sum(acc, red, cslots, parity);
 }
 
-// D, B, r of supernode k (this thread) at poses P, damped by lam and
-// gauge-fixed (banded.assemble_supernodes semantics).
-__device__ void assemble(const Ctx& c, float lam) {
-  const int k = threadIdx.x, n = c.n, W = c.W, K = c.K;
-  for (int i = 0; i < n; ++i) {
-    for (int j = 0; j < n; ++j) {
-      M(c.D, c, i, j, k) = 0.f;
-      M(c.B, c, i, j, k) = 0.f;
-    }
-    c.r[i * K + k] = 0.f;
-  }
+// D, B, r at poses P, damped by lam and gauge-fixed
+// (banded.assemble_supernodes semantics), a thread per flat lane. The
+// thread of node a of supernode k writes the D blocks (a, b) and (b, a)
+// for b >= a, B's block row a and r's rows of a, so every entry has one
+// writer. The high node's share of an edge goes through the stage to the
+// thread of that node.
+template <int N>
+__device__ void assemble(const Ctx& c, float lam, const Team& t) {
+  constexpr int W = N / 3;
+  const int K = c.K, WK = c.WK;
   Edge e;
   float HLL[3][3], HLH[3][3], HHH[3][3], bL[3], bH[3];
-  for (int a = 0; a < W; ++a)
-    for (int bank = 0; bank < NBANKS; ++bank)
-      for (int d = 1; d <= W; ++d) {
-        if (!edge_terms(c, c.P, bank, d, a, k, e)) continue;
+  FOR_FLAT(f, t) {
+    const int a = f / K, k = f % K;
+    float* D = c.D + (size_t)k * N * N;
+    float* B = c.B + (size_t)k * N * N;
+    const float* fr = c.free;
+    const int kn = (k + 1) % K;
+    float Hd[3][3] = {}, rb[3] = {};
+    for (int d = 1; d <= W; ++d) {
+      float Hx[3][3] = {};
+      for (int bank = 0; bank < NBANKS; ++bank) {
+        if (!edge_terms<Ctx, true>(c, c.P, bank, d, a, k, e)) continue;
         edge_blocks(e, HLL, HLH, HHH, bL, bH);
-        const int bo = a + d;
         for (int u = 0; u < 3; ++u) {
           for (int v = 0; v < 3; ++v) {
-            M(c.D, c, 3 * a + u, 3 * a + v, k) += HLL[u][v];
-            if (bo < W) {
-              M(c.D, c, 3 * a + u, 3 * bo + v, k) += HLH[u][v];
-              M(c.D, c, 3 * bo + v, 3 * a + u, k) += HLH[u][v];
-            } else {
-              M(c.B, c, 3 * a + u, 3 * (bo - W) + v, k) += HLH[u][v];
-            }
+            Hd[u][v] += HLL[u][v];
+            Hx[u][v] += HLH[u][v];
           }
-          c.r[(3 * a + u) * K + k] += bL[u];
+          rb[u] += bL[u];
         }
-        // the high node's share goes to its owner through the stage
         float* st = c.stage +
-                    (size_t)((bank * W + d - 1) * STAGE_ROWS) * c.WK +
-                    a * K + k;
+                    (size_t)((bank * W + d - 1) * STAGE_ROWS) * WK + f;
         for (int u = 0; u < 3; ++u) {
-          for (int v = 0; v < 3; ++v) st[(size_t)(3 * u + v) * c.WK] = HHH[u][v];
-          st[(size_t)(9 + u) * c.WK] = bH[u];
+          for (int v = 0; v < 3; ++v) st[(size_t)(3 * u + v) * WK] = HHH[u][v];
+          st[(size_t)(9 + u) * WK] = bH[u];
         }
       }
-  __syncthreads();
-  for (int a = 0; a < W; ++a) {
+      // block (a, a + d): inside the supernode (masked by both nodes'
+      // flags), or the coupling to the next one (masked by its flags)
+      const int bo = a + d;
+      const float fa = fr[a * K + k];
+      if (bo < W) {
+        const float m = fa * fr[bo * K + k];
+        for (int u = 0; u < 3; ++u)
+          for (int v = 0; v < 3; ++v) {
+            D[(3 * a + u) * N + 3 * bo + v] = Hx[u][v] * m;
+            D[(3 * bo + v) * N + 3 * a + u] = Hx[u][v] * m;
+          }
+      } else {
+        const float m = fa * fr[(bo - W) * K + kn];
+        for (int u = 0; u < 3; ++u)
+          for (int v = 0; v < 3; ++v)
+            B[(3 * a + u) * N + 3 * (bo - W) + v] = Hx[u][v] * m;
+      }
+    }
+    // B's blocks (a, b > a) take no edge: their nodes are a whole band apart
+    for (int u = 0; u < 3; ++u)
+      for (int j = 3 * a + 3; j < N; ++j) B[(3 * a + u) * N + j] = 0.f;
+    for (int u = 0; u < 3; ++u) {
+      for (int v = 0; v < 3; ++v) D[(3 * a + u) * N + 3 * a + v] = Hd[u][v];
+      c.r[(size_t)k * N + 3 * a + u] = rb[u];
+    }
+  }
+  cluster_barrier();
+  // the high nodes' shares, gathered by their owners; then damping (jitter,
+  // then x (1 + lambda) on the diagonal) and the gauge / padding mask on
+  // the diagonal block and r: non-free rows and columns zeroed, identity
+  // on the diagonal
+  const float one_lam = 1.f + lam;
+  FOR_FLAT(f, t) {
+    const int a = f / K, k = f % K;
+    float* D = c.D + (size_t)k * N * N + 3 * a * N + 3 * a;
+    float* r = c.r + (size_t)k * N + 3 * a;
+    float Hd[3][3], rb[3];
+    for (int u = 0; u < 3; ++u) {
+      for (int v = 0; v < 3; ++v) Hd[u][v] = D[u * N + v];
+      rb[u] = r[u];
+    }
     const int p = k * W + a;  // chain position of this node
     for (int bank = 0; bank < NBANKS; ++bank)
       for (int d = 1; d <= W; ++d) {
@@ -112,177 +208,291 @@ __device__ void assemble(const Ctx& c, float lam) {
         if (pl < 0) continue;
         const int fl = (pl % W) * K + pl / W;
         const float* sl =
-            c.slots + (size_t)((bank * W + d - 1) * SLOT_ROWS) * c.WK + fl;
+            c.slots + (size_t)((bank * W + d - 1) * SLOT_ROWS) * WK + fl;
         bool any = false;
-        for (int q = 0; q < 6; ++q) any |= sl[(size_t)(3 + q) * c.WK] != 0.f;
+        for (int q = 0; q < 6; ++q) any |= sl[(size_t)(3 + q) * WK] != 0.f;
         if (!any) continue;
         const float* st =
-            c.stage + (size_t)((bank * W + d - 1) * STAGE_ROWS) * c.WK + fl;
+            c.stage + (size_t)((bank * W + d - 1) * STAGE_ROWS) * WK + fl;
         for (int u = 0; u < 3; ++u) {
-          for (int v = 0; v < 3; ++v)
-            M(c.D, c, 3 * a + u, 3 * a + v, k) += st[(size_t)(3 * u + v) * c.WK];
-          c.r[(3 * a + u) * K + k] += st[(size_t)(9 + u) * c.WK];
+          for (int v = 0; v < 3; ++v) Hd[u][v] += ld(st + (size_t)(3 * u + v) * WK);
+          rb[u] += ld(st + (size_t)(9 + u) * WK);
         }
       }
-  }
-  // damping (jitter, then x (1 + lambda) on the diagonal) and the gauge /
-  // padding mask: rows and columns of non-free nodes zeroed, identity diag
-  const float one_lam = 1.f + lam;
-  for (int i = 0; i < n; ++i) {
-    float& dii = M(c.D, c, i, i, k);
-    dii = (dii + 1e-12f) * one_lam;
-  }
-  const int kn = (k + 1) % K;
-  for (int i = 0; i < n; ++i) {
-    const float fi = c.free[(i / 3) * K + k];
-    for (int j = 0; j < n; ++j) {
-      M(c.D, c, i, j, k) *= fi * c.free[(j / 3) * K + k];
-      M(c.B, c, i, j, k) *= fi * c.free[(j / 3) * K + kn];
+    const float fa = c.free[f];
+    for (int u = 0; u < 3; ++u) {
+      Hd[u][u] = (Hd[u][u] + 1e-12f) * one_lam;
+      for (int v = 0; v < 3; ++v) D[u * N + v] = Hd[u][v] * fa * fa;
+      D[u * N + u] += 1.f - fa;
+      r[u] = -rb[u] * fa;
     }
-    M(c.D, c, i, i, k) += 1.f - fi;
-    c.r[i * K + k] = -c.r[i * K + k] * fi;
+  }
+  cluster_barrier();
+}
+
+// In-place lower Cholesky of the N x N matrix A (row stride N | 1) by N
+// column steps; lane i holds row i in registers and publishes each new
+// entry to A, where the later steps read row j as a broadcast. Leaves the
+// pivots' reciprocals in rinv.
+template <int N>
+__device__ void warp_cholesky(float* A, float* rinv, int lane) {
+  constexpr int LD = N | 1;
+  const int row = lane < N ? lane : N - 1;
+  float a[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) a[m] = A[row * LD + m];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float s = a[j];
+#pragma unroll
+    for (int m = 0; m < j; ++m) s -= a[m] * A[j * LD + m];
+    const float ljj = sqrtf(fmaxf(__shfl_sync(FULL, s, j), 1e-30f));
+    a[j] = lane == j ? ljj : s / ljj;
+    if (lane >= j && lane < N) A[lane * LD + j] = a[j];
+    if (lane == j) rinv[j] = 1.f / ljj;
+    __syncwarp();
   }
 }
 
-// In-place lower Cholesky of D at lane k.
-__device__ void cholesky(const Ctx& c, int k) {
-  const int n = c.n;
-  for (int j = 0; j < n; ++j) {
-    float s = M(c.D, c, j, j, k);
-    for (int m = 0; m < j; ++m) {
-      const float l = M(c.D, c, j, m, k);
-      s -= l * l;
-    }
-    const float ljj = sqrtf(fmaxf(s, 1e-30f));
-    M(c.D, c, j, j, k) = ljj;
-    for (int i = j + 1; i < n; ++i) {
-      float t = M(c.D, c, i, j, k);
-      for (int m = 0; m < j; ++m) t -= M(c.D, c, i, m, k) * M(c.D, c, j, m, k);
-      M(c.D, c, i, j, k) = t / ljj;
-    }
+// y <- (L L^T)^-1 y for one column held in registers.
+template <int N>
+__device__ __forceinline__ void chol_solve(const float* L, const float* rinv,
+                                           float (&y)[N]) {
+  constexpr int LD = N | 1;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = y[i];
+#pragma unroll
+    for (int m = 0; m < i; ++m) s -= L[i * LD + m] * y[m];
+    y[i] = s * rinv[i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int m = i + 1; m < N; ++m) s -= L[m * LD + i] * y[m];
+    y[i] = s * rinv[i];
   }
 }
 
-// y <- (L L^T)^-1 y for one column y (entry i at y[i * stride]).
-__device__ void chol_solve(const Ctx& c, int k, float* y, size_t stride) {
-  const int n = c.n;
-  for (int i = 0; i < n; ++i) {
-    float t = y[i * stride];
-    for (int m = 0; m < i; ++m) t -= M(c.D, c, i, m, k) * y[m * stride];
-    y[i * stride] = t / M(c.D, c, i, i, k);
+// Eliminate supernode k at level h (left survivor e = k - h): X1, X2, Xr.
+template <int N>
+__device__ void eliminate(const Ctx& c, int k, int h, float* sm, int lane) {
+  constexpr int LD = N | 1, NR = 2 * N + 1, NN = N * N;
+  float* A = sm;            // N x LD
+  float* R = sm + N * LD;   // N x NR: [B_e^T | B_k | r_k]
+  float* rinv = R + N * NR; // N
+  const float* D = c.D + (size_t)k * NN;
+  const float* Be = c.B + (size_t)(k - h) * NN;
+  const float* Bk = c.B + (size_t)k * NN;
+#pragma unroll
+  for (int t = 0; t < (NN + 31) / 32; ++t) {
+    const int q = lane + 32 * t;
+    if (q < NN) {
+      const int i = q / N, j = q % N;
+      const float d = ld(D + q), b = ld(Bk + q), be = ld(Be + q);
+      A[i * LD + j] = d;
+      R[i * NR + N + j] = b;
+      R[j * NR + i] = be;
+    }
   }
-  for (int i = n - 1; i >= 0; --i) {
-    float t = y[i * stride];
-    for (int m = i + 1; m < n; ++m) t -= M(c.D, c, m, i, k) * y[m * stride];
-    y[i * stride] = t / M(c.D, c, i, i, k);
+  if (lane < N) R[lane * NR + 2 * N] = ld(c.r + (size_t)k * N + lane);
+  __syncwarp();
+  warp_cholesky<N>(A, rinv, lane);
+  for (int col = lane; col < NR; col += 32) {
+    float y[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) y[i] = R[i * NR + col];
+    chol_solve<N>(A, rinv, y);
+    float* dst = col < N       ? c.X1 + (size_t)k * NN + col
+                 : col < 2 * N ? c.X2 + (size_t)k * NN + (col - N)
+                               : c.Xr + (size_t)k * N;
+    const int stride = col < 2 * N ? N : 1;
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i * stride] = y[i];
   }
+  __syncwarp();
 }
 
-// x <- H^-1 r by block cyclic reduction (banded.cr_solve's order).
-__device__ void cr_solve(const Ctx& c) {
-  const int k = threadIdx.x, n = c.n, K = c.K;
-  const size_t col = (size_t)n * K;  // stride between rows of a matrix
+// Survivor k at level h folds in its eliminated neighbours k - h (when
+// there is one) and k + h: D_k <- (D_k - B_{k-h}^T X2_{k-h}) - B_k X1_{k+h},
+// r_k likewise with Xr, B_k <- -B_k X2_{k+h} (0 at the chain's end). The
+// five operand blocks are staged together; lanes own D's entries
+// q = lane + 32 t and r's rows.
+template <int N>
+__device__ void fold(const Ctx& c, int k, int h, float* sm, int lane) {
+  constexpr int NN = N * N, NE = (NN + 31) / 32;
+  float* Bl = sm;             // B_{k-h}
+  float* X2l = sm + NN;       // X2_{k-h}
+  float* Bk = sm + 2 * NN;    // B_k
+  float* X1r = sm + 3 * NN;   // X1_{k+h}
+  float* X2r = sm + 4 * NN;   // X2_{k+h}
+  float* vl = sm + 5 * NN;    // Xr_{k-h}
+  float* vr = vl + N;         // Xr_{k+h}
+  const bool left = k >= 2 * h;
+  const size_t ol = (size_t)(left ? k - h : k), orr = (size_t)(k + h);
+  const bool more = k + 2 * h < c.K;
+  float* D = c.D + (size_t)k * NN;
+  float* B = c.B + (size_t)k * NN;
+#pragma unroll
+  for (int t = 0; t < NE; ++t) {
+    const int q = lane + 32 * t;
+    if (q < NN) {
+      const float bl = left ? ld(c.B + ol * NN + q) : 0.f;
+      const float x2l = left ? ld(c.X2 + ol * NN + q) : 0.f;
+      const float bk = ld(B + q);
+      const float x1r = ld(c.X1 + orr * NN + q);
+      const float x2r = ld(c.X2 + orr * NN + q);
+      Bl[q] = bl;
+      X2l[q] = x2l;
+      Bk[q] = bk;
+      X1r[q] = x1r;
+      X2r[q] = x2r;
+    }
+  }
+  if (lane < N) {
+    vl[lane] = left ? ld(c.Xr + ol * N + lane) : 0.f;
+    vr[lane] = ld(c.Xr + orr * N + lane);
+  }
+  __syncwarp();
+#pragma unroll 1  // unrolled, its loads spill registers
+  for (int t = 0; t < NE; ++t) {
+    const int q = lane + 32 * t;
+    if (q < NN) {
+      const int i = q / N, j = q % N;
+      float sl = 0.f, sr = 0.f, b = 0.f;
+      if (left)
+#pragma unroll
+        for (int m = 0; m < N; ++m) sl += Bl[m * N + i] * X2l[m * N + j];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        sr += Bk[i * N + m] * X1r[m * N + j];
+        b += Bk[i * N + m] * X2r[m * N + j];
+      }
+      D[q] = (ld(D + q) - sl) - sr;
+      B[q] = more ? -b : 0.f;
+    }
+  }
+  if (lane < N) {
+    float sl = 0.f, sr = 0.f;
+    if (left)
+#pragma unroll
+      for (int m = 0; m < N; ++m) sl += Bl[m * N + lane] * vl[m];
+#pragma unroll
+    for (int m = 0; m < N; ++m) sr += Bk[lane * N + m] * vr[m];
+    float* r = c.r + (size_t)k * N + lane;
+    *r = (ld(r) - sl) - sr;
+  }
+  __syncwarp();
+}
+
+// Back-substitution of supernode k at level h:
+// x_k = Xr_k - X1_k x_{k-h} - X2_k x_{k+h} (no right term at the end).
+template <int N>
+__device__ void back_substitute(const Ctx& c, int k, int h, float* sm,
+                                int lane) {
+  constexpr int NN = N * N;
+  float* S0 = sm;
+  float* S1 = sm + NN;
+  float* v = sm + 2 * NN;
+  const int e = k - h, g = k + h;
+  const bool right = g < c.K;
+#pragma unroll
+  for (int t = 0; t < (NN + 31) / 32; ++t) {
+    const int q = lane + 32 * t;
+    if (q < NN) {
+      const float x1 = ld(c.X1 + (size_t)k * NN + q);
+      const float x2 = right ? ld(c.X2 + (size_t)k * NN + q) : 0.f;
+      S0[q] = x1;
+      S1[q] = x2;
+    }
+  }
+  if (lane < N) {
+    v[lane] = ld(c.x + (size_t)e * N + lane);
+    if (right) v[N + lane] = ld(c.x + (size_t)g * N + lane);
+  }
+  __syncwarp();
+  if (lane < N) {
+    float s = ld(c.Xr + (size_t)k * N + lane);
+#pragma unroll
+    for (int m = 0; m < N; ++m) s -= S0[lane * N + m] * v[m];
+    if (right)
+#pragma unroll
+      for (int m = 0; m < N; ++m) s -= S1[lane * N + m] * v[N + m];
+    c.x[(size_t)k * N + lane] = s;
+  }
+  __syncwarp();
+}
+
+// x <- H^-1 r by block cyclic reduction (banded.cr_solve's order), a warp
+// per active supernode.
+template <int N>
+__device__ void cr_solve(const Ctx& c, const Team& t, float* sm) {
+  const int K = c.K;
   int h = 1;
   for (; h < K; h <<= 1) {
-    if ((k & (2 * h - 1)) == h) {  // eliminated at this level
-      const int e = k - h;
-      cholesky(c, k);
-      for (int i = 0; i < n; ++i) {
-        for (int j = 0; j < n; ++j) {
-          M(c.X1, c, i, j, k) = M(c.B, c, j, i, e);
-          M(c.X2, c, i, j, k) = M(c.B, c, i, j, k);
-        }
-        c.Xr[i * K + k] = c.r[i * K + k];
-      }
-      for (int j = 0; j < n; ++j) {
-        chol_solve(c, k, &M(c.X1, c, 0, j, k), col);
-        chol_solve(c, k, &M(c.X2, c, 0, j, k), col);
-      }
-      chol_solve(c, k, &c.Xr[k], K);
-    }
-    __syncthreads();
-    if ((k & (2 * h - 1)) == 0) {  // survivor: fold in both neighbours
-      if (k >= 2 * h) {  // from the eliminated supernode on the left
-        const int o = k - h;
-        for (int i = 0; i < n; ++i) {
-          for (int j = 0; j < n; ++j) {
-            float t = 0.f;
-            for (int m = 0; m < n; ++m)
-              t += M(c.B, c, m, i, o) * M(c.X2, c, m, j, o);
-            M(c.D, c, i, j, k) -= t;
-          }
-          float t = 0.f;
-          for (int m = 0; m < n; ++m) t += M(c.B, c, m, i, o) * c.Xr[m * K + o];
-          c.r[i * K + k] -= t;
-        }
-      }
-      const int o = k + h;  // from the eliminated supernode on the right
-      const bool more = o + h < K;
-      float row[24];
-      for (int i = 0; i < n; ++i) {
-        for (int j = 0; j < n; ++j) {
-          float t = 0.f;
-          for (int m = 0; m < n; ++m)
-            t += M(c.B, c, i, m, k) * M(c.X1, c, m, j, o);
-          M(c.D, c, i, j, k) -= t;
-        }
-        float t = 0.f;
-        for (int m = 0; m < n; ++m) t += M(c.B, c, i, m, k) * c.Xr[m * K + o];
-        c.r[i * K + k] -= t;
-        // new coupling to supernode k + 2h: -B_k X2_o (row i needs only
-        // row i of the old B_k)
-        for (int j = 0; j < n; ++j) {
-          float s = 0.f;
-          if (more)
-            for (int m = 0; m < n; ++m)
-              s += M(c.B, c, i, m, k) * M(c.X2, c, m, j, o);
-          row[j] = -s;
-        }
-        for (int j = 0; j < n; ++j) M(c.B, c, i, j, k) = row[j];
-      }
-    }
-    __syncthreads();
+    const int cnt = K / (2 * h);  // eliminations and survivors alike
+    for (int j = t.gwarp; j < cnt; j += t.nwarps)
+      eliminate<N>(c, h * (2 * j + 1), h, sm, t.lane);
+    cluster_barrier();
+    for (int j = t.gwarp; j < cnt; j += t.nwarps)
+      fold<N>(c, 2 * h * j, h, sm, t.lane);
+    cluster_barrier();
   }
   // top: x_0 = D_0^-1 r_0
-  if (k == 0) {
-    cholesky(c, 0);
-    for (int i = 0; i < n; ++i) c.x[i * K] = c.r[i * K];
-    chol_solve(c, 0, &c.x[0], K);
+  if (t.gwarp == 0) {
+    constexpr int LD = N | 1;
+    float* rinv = sm + N * LD;
+    for (int q = t.lane; q < N * N; q += 32)
+      sm[(q / N) * LD + q % N] = ld(c.D + q);
+    __syncwarp();
+    warp_cholesky<N>(sm, rinv, t.lane);
+    if (t.lane == 0) {
+      float y[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) y[i] = ld(c.r + i);
+      chol_solve<N>(sm, rinv, y);
+#pragma unroll
+      for (int i = 0; i < N; ++i) c.x[i] = y[i];
+    }
+    __syncwarp();
   }
-  __syncthreads();
+  cluster_barrier();
   // back-substitution, top level down
   for (h >>= 1; h >= 1; h >>= 1) {
-    if ((k & (2 * h - 1)) == h) {
-      const int e = k - h, g = k + h;
-      float row[24];
-      for (int i = 0; i < n; ++i) {
-        float t = c.Xr[i * K + k];
-        for (int m = 0; m < n; ++m) t -= M(c.X1, c, i, m, k) * c.x[m * K + e];
-        if (g < K)
-          for (int m = 0; m < n; ++m) t -= M(c.X2, c, i, m, k) * c.x[m * K + g];
-        row[i] = t;
-      }
-      for (int i = 0; i < n; ++i) c.x[i * K + k] = row[i];
-    }
-    __syncthreads();
+    const int cnt = K / (2 * h);
+    for (int j = t.gwarp; j < cnt; j += t.nwarps)
+      back_substitute<N>(c, h * (2 * j + 1), h, sm, t.lane);
+    cluster_barrier();
   }
 }
 
-constexpr int K_MAX = 512;  // solver/cr_lm.py K_MAX
-
-__global__ void __launch_bounds__(K_MAX) cr_lm_kernel(const float* __restrict__ pT8,
-                             const float* __restrict__ slots,
-                             float* __restrict__ out, float* scratch,
-                             float lam0, int W, int K, int iters,
-                             float sq_min_delta) {
+template <int W>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    cr_lm_kernel(const float* __restrict__ pT8, const float* __restrict__ slots,
+                 float* __restrict__ out, float* scratch, float lam0, int K,
+                 int iters, float sq_min_delta) {
+  constexpr int N = 3 * W;
+  extern __shared__ float dyn[];
   __shared__ float red[33];
+  __shared__ float cslots[2];
+  cg::cluster_group cl = cg::this_cluster();
+  Team t;
+  const int chunk = (W * K + cl.num_blocks() - 1) / cl.num_blocks();
+  t.f0 = cl.block_rank() * chunk + threadIdx.x;
+  t.f1 = min(W * K, ((int)cl.block_rank() + 1) * chunk);
+  t.lane = threadIdx.x & 31;
+  t.gwarp = (cl.block_rank() * blockDim.x + threadIdx.x) >> 5;
+  t.nwarps = cl.num_blocks() * blockDim.x >> 5;
+  float* sm = dyn + (threadIdx.x >> 5) * warp_floats(N);
+  int parity = 0;
+
   Ctx c;
   c.W = W;
   c.K = K;
-  c.n = 3 * W;
   c.WK = W * K;
-  const int n = c.n, WK = c.WK;
-  const size_t nnK = (size_t)n * n * K, nK = (size_t)n * K;
+  const int WK = c.WK;
+  const size_t nnK = (size_t)N * N * K, nK = (size_t)N * K;
   c.slots = slots;
   c.free = pT8 + 3 * WK;
   c.P = scratch;
@@ -296,36 +506,34 @@ __global__ void __launch_bounds__(K_MAX) cr_lm_kernel(const float* __restrict__ 
   c.x = c.Xr + nK;
   c.stage = c.x + nK;
 
-  const int k = threadIdx.x;
-  for (int a = 0; a < W; ++a)
-    for (int u = 0; u < 3; ++u) c.P[u * WK + a * K + k] = pT8[u * WK + a * K + k];
-  __syncthreads();
+  FOR_FLAT(f, t)
+    for (int u = 0; u < 3; ++u) c.P[u * WK + f] = pT8[u * WK + f];
+  cluster_barrier();
 
-  const float cost0 = graph_cost(c, c.P, red);
+  const float cost0 = graph_cost(c, c.P, t, red, cslots, parity);
   float lam = lam0, laminc = 2.f, cost = cost0, good = 0.f;
   int it = 0;
   bool done = false;
   while (it < iters && !done) {
-    assemble(c, lam);
-    cr_solve(c);
+    assemble<N>(c, lam, t);
+    cr_solve<N>(c, t, sm);
     float sq = 0.f;
-    for (int a = 0; a < W; ++a) {
-      const int f = a * K + k;
+    FOR_FLAT(f, t) {
+      const int a = f / K, k = f % K;
       for (int u = 0; u < 3; ++u) {
-        const float dl = c.x[(3 * a + u) * K + k] * c.free[f];
+        const float dl = ld(c.x + (size_t)k * N + 3 * a + u) * c.free[f];
         sq += dl * dl;
-        const float v = c.P[u * WK + f] + dl;
+        const float v = ld(c.P + u * WK + f) + dl;
         c.C[u * WK + f] = u == 2 ? wrap(v) : v;
       }
     }
-    sq = block_sum(sq, red);  // also publishes C to the other threads
+    sq = cluster_sum(sq, red, cslots, parity);  // also publishes C
     const bool converged = sq < sq_min_delta;
-    const float new_cost = graph_cost(c, c.C, red);
-    const bool accept = new_cost < cost && !converged;
-    if (accept) {
-      for (int a = 0; a < W; ++a)
-        for (int u = 0; u < 3; ++u)
-          c.P[u * WK + a * K + k] = c.C[u * WK + a * K + k];
+    const float new_cost = graph_cost(c, c.C, t, red, cslots, parity);
+    if (new_cost < cost && !converged) {  // accept: C becomes P
+      float* tmp = c.P;
+      c.P = c.C;
+      c.C = tmp;
       cost = new_cost;
       lam = lam * 0.5f;
       good += 1.f;
@@ -335,11 +543,9 @@ __global__ void __launch_bounds__(K_MAX) cr_lm_kernel(const float* __restrict__ 
     }
     ++it;
     done = converged;
-    __syncthreads();
   }
-  for (int a = 0; a < W; ++a) {
-    const int f = a * K + k;
-    for (int u = 0; u < 3; ++u) out[u * WK + f] = c.P[u * WK + f];
+  FOR_FLAT(f, t) {
+    for (int u = 0; u < 3; ++u) out[u * WK + f] = ld(c.P + u * WK + f);
     float s = 0.f;
     if (f == 0) s = cost0;
     if (f == 1) s = cost;
@@ -348,15 +554,42 @@ __global__ void __launch_bounds__(K_MAX) cr_lm_kernel(const float* __restrict__ 
     out[3 * WK + f] = s;
     for (int u = 4; u < 8; ++u) out[u * WK + f] = 0.f;
   }
+  cl.sync();  // no block leaves while another may read its shared memory
 }
 
 }  // namespace
 
+// One cluster of `blocks` blocks of `warps` warps with `smem` bytes of
+// dynamic shared memory each (solver/cr_lm.py::launch_geometry). Returns a
+// cudaError_t: non-zero when the arguments are out of range or the card
+// refuses the cluster.
 extern "C" int cr_lm_launch(const void* pT8, const void* slots, void* out,
                             void* scratch, float lam0, int W, int K,
-                            int iters, float sq_min_delta, void* stream) {
-  cr_lm_kernel<<<1, K, 0, (cudaStream_t)stream>>>(
-      (const float*)pT8, (const float*)slots, (float*)out, (float*)scratch,
-      lam0, W, K, iters, sq_min_delta);
-  return (int)cudaGetLastError();
+                            int iters, float sq_min_delta, int blocks,
+                            int warps, int smem, void* stream) {
+  if (W < 1 || W > 8 || K < 32 || K > K_MAX || (K & (K - 1)) != 0 ||
+      blocks < 1 || blocks > MAX_CLUSTER || warps < 1 || warps > MAX_WARPS ||
+      smem < warps * warp_floats(3 * W) * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  const float* p = (const float*)pT8;
+  const float* s = (const float*)slots;
+  float* o = (float*)out;
+  float* sc = (float*)scratch;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+#define CR_LM_CASE(w)                                                      \
+  case w:                                                                  \
+    return launch_cluster(cr_lm_kernel<w>, blocks, 32 * warps, smem, st,   \
+                          p, s, o, sc, lam0, K, iters, sq_min_delta);
+    CR_LM_CASE(1)
+    CR_LM_CASE(2)
+    CR_LM_CASE(3)
+    CR_LM_CASE(4)
+    CR_LM_CASE(5)
+    CR_LM_CASE(6)
+    CR_LM_CASE(7)
+    CR_LM_CASE(8)
+#undef CR_LM_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,8 @@ triangle and role flip at its low node's lane (``tpu_slam.solver.banded``).
 The result is the packed (8, W·K) array: solved poses in rows 0..2 and
 (cost0, cost, good, iters) in row 3, lanes 0..3.
 
-On ``cuda`` it launches ``csrc/cr_lm.cu``; on ``cpu`` it runs
+On ``cuda`` it launches ``csrc/cr_lm.cu`` as one thread-block cluster
+(``launch_geometry``); a launch the card refuses raises. On ``cpu`` it runs
 ``cr_lm_plain``, the plain PyTorch version below, which mirrors
 ``banded.assemble_supernodes``, ``banded.cr_solve`` and the kernel's LM
 loop, vectorized over supernodes.
@@ -21,19 +22,49 @@ import numpy as np
 import torch
 
 from tpu_slam_torch import _build, _dispatch
+from tpu_slam_torch._build import (
+    MAX_CLUSTER,
+    SMEM_PER_BLOCK,
+    SMEM_STATIC_RESERVE,
+)
 from tpu_slam_torch.solver.banded import NBANKS, SLOT_ROWS
 from tpu_slam_torch.solver.lm import lm_loop, norm_angle, omega, pack
 
-# the routing split kept from the reference (cr_lm_applicable), and the
-# kernel's launch bound: one thread per supernode (cr_lm.cu)
+# the routing split kept from the reference (cr_lm_applicable)
 K_MAX = 512
 STAGE_ROWS = 12  # kernel staging rows per slot: 9 H entries + 3 b entries
+# the kernel's warps per block (cr_lm.cu)
+MAX_WARPS = 8  # 256 threads: up to 255 registers a thread
 
 
 def scratch_floats(W: int, K: int) -> int:
-    """Float count of the kernel's device scratch (see cr_lm.cu)."""
+    """Float count of the kernel's device scratch (see cr_lm.cu): P, C
+    (3·W·K each), D, B, X1, X2 (n²·K each), r, Xr, x (n·K each) and the
+    high-node staging rows."""
     n, WK = 3 * W, W * K
     return 6 * WK + 4 * n * n * K + 3 * n * K + NBANKS * W * STAGE_ROWS * WK
+
+
+def warp_smem_bytes(W: int) -> int:
+    """Shared memory of one warp's slice (cr_lm.cu ``warp_floats``): the
+    survivor's five staged n × n operand blocks and two vectors, the most
+    of a warp's three uses."""
+    n = 3 * W
+    return 4 * (5 * n * n + 2 * n)
+
+
+def launch_geometry(W: int, K: int) -> tuple[int, int, int]:
+    """(blocks, warps per block, dynamic shared bytes per block) of the
+    kernel's one cluster: a warp for each of a level's K/2 eliminations,
+    spread over up to MAX_CLUSTER SMs of at most MAX_WARPS warps (so at
+    K = 256 a warp takes two of the first level's, at K = 512 four), and
+    no more warps a block than their slices fit in shared memory."""
+    need = K // 2
+    per_warp = warp_smem_bytes(W)
+    cap = min(MAX_WARPS, (SMEM_PER_BLOCK - SMEM_STATIC_RESERVE) // per_warp)
+    blocks = min(MAX_CLUSTER, -(-need // cap))
+    warps = min(cap, -(-need // blocks))
+    return blocks, warps, warps * per_warp
 
 
 def check_packed(pT8: torch.Tensor, slots: torch.Tensor, W: int,
@@ -50,6 +81,14 @@ def check_packed(pT8: torch.Tensor, slots: torch.Tensor, W: int,
                              f"{tuple(t.shape)} on {t.device}")
 
 
+def check_launch(W: int, K: int) -> None:
+    """Raise unless the kernel takes a band of ``W`` nodes and ``K``
+    supernodes: the route's limits."""
+    if not (1 <= W <= 8 and 32 <= K <= K_MAX and K & (K - 1) == 0):
+        raise ValueError(f"CR-LM kernel takes W in 1..8 and K a power of "
+                         f"two in 32..{K_MAX}, got W={W}, K={K}")
+
+
 def fused_cr_lm(pT8: torch.Tensor, slots: torch.Tensor, lam0: float, *,
                 W: int, K: int, iters: int,
                 sq_min_delta: float) -> torch.Tensor:
@@ -59,17 +98,16 @@ def fused_cr_lm(pT8: torch.Tensor, slots: torch.Tensor, lam0: float, *,
                            sq_min_delta=sq_min_delta)
     dev = pT8.device
     WK = W * K
-    if not (1 <= W <= 8 and 32 <= K <= K_MAX and K & (K - 1) == 0):
-        raise ValueError(f"CR-LM kernel takes W in 1..8 and K a power of "
-                         f"two in 32..{K_MAX}, got W={W}, K={K}")
+    check_launch(W, K)
     check_packed(pT8, slots, W, K)
     out = torch.empty((8, WK), dtype=torch.float32, device=dev)
     scratch = torch.empty(scratch_floats(W, K), dtype=torch.float32,
                           device=dev)
+    blocks, warps, smem = launch_geometry(W, K)
     _build.launch(
         "cr_lm", pT8.data_ptr(), slots.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), float(lam0), W, K, iters, float(sq_min_delta),
-        torch.cuda.current_stream(dev).cuda_stream,
+        blocks, warps, smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     _dispatch.count_launch("cr_lm")
     return out

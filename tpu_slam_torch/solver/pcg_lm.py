@@ -8,7 +8,11 @@ each step runs ``cg_iters`` PCG iterations on H δ = −b, stopping once
 ‖r‖² ≤ cg_tol·‖b‖², with the damped 3×3 diagonal blocks inverted as the
 preconditioner.
 
-On ``cuda`` ``fused_lm_solve`` launches ``csrc/pcg_lm.cu``; on ``cpu`` it
+On ``cuda`` ``fused_lm_solve`` launches ``csrc/pcg_lm.cu`` as one
+thread-block cluster, the nodes cut into ranges a block each
+(``launch_geometry``), with the CG hot set in the blocks' shared memory
+where a range's fits and in device memory otherwise; a launch the card
+refuses raises. On ``cpu`` it
 runs ``pcg_lm_plain``, the plain PyTorch version below (the reference's
 XLA CG program, on the normal equations of ``solver/lm.py``).
 """
@@ -19,6 +23,11 @@ import numpy as np
 import torch
 
 from tpu_slam_torch import _build, _dispatch
+from tpu_slam_torch._build import (
+    MAX_CLUSTER,
+    SMEM_PER_BLOCK,
+    SMEM_STATIC_RESERVE,
+)
 from tpu_slam_torch.solver.lm import (
     graph_cost,
     lm_loop,
@@ -29,9 +38,45 @@ from tpu_slam_torch.solver.lm import (
 )
 
 
-def scratch_floats(M: int, E: int) -> int:
-    """Float count of the kernel's device scratch (see pcg_lm.cu)."""
-    return 36 * M + 33 * E
+# the kernel's threads per block (pcg_lm.cu) and the fewest nodes a block
+# takes
+MAX_THREADS = 512
+MIN_NODES_PER_BLOCK = 256
+
+
+def scratch_floats(M: int, E: int, blocks: int, S: int) -> int:
+    """Float count of the kernel's device scratch (see pcg_lm.cu): the
+    device-memory hot set over blocks·S node slots (36 floats each) and
+    2E incidences (9 each), then poses, candidate and gradient (9·M) and
+    the edge blocks of the assembly (18·E)."""
+    return 36 * blocks * S + 18 * E + 9 * M + 18 * E
+
+
+def hot_set_bytes(S: int, qmax: int) -> int:
+    """Bytes of one block's PCG hot set (pcg_lm.cu ``hot_words``): for each
+    of its S nodes x, r, z, two p buffers, Ap and the diagonal block and
+    its inverse (float4 each, and float2 for the blocks' last entries);
+    for each of its at most ``qmax`` incidences H (9 floats) and (edge
+    and role, other node); its row pointers (S + 1)."""
+    return 4 * (37 * S + 11 * qmax + 1)
+
+
+def launch_geometry(row_ptr: np.ndarray) -> tuple[int, int, int, int]:
+    """(blocks, log2 S, qmax, shared bytes) of the kernel's one cluster for
+    a graph with CSR ``row_ptr`` (M + 1,): nodes cut into ranges of
+    S = 2^logS ≥ MIN_NODES_PER_BLOCK, at most MAX_CLUSTER of them, one a
+    block; qmax the most incidences a range holds; the shared bytes of its
+    hot set where that fits a block, else 0 (the device-memory variant)."""
+    M = len(row_ptr) - 1
+    S = MIN_NODES_PER_BLOCK
+    while S * MAX_CLUSTER < M:
+        S *= 2
+    blocks = -(-M // S)
+    ends = np.minimum(np.arange(blocks + 1) * S, M)
+    qmax = int(np.diff(row_ptr[ends]).max())
+    need = hot_set_bytes(S, qmax)
+    smem = need if need <= SMEM_PER_BLOCK - SMEM_STATIC_RESERVE else 0
+    return blocks, S.bit_length() - 1, qmax, smem
 
 
 def _incidence(ei: np.ndarray, ej: np.ndarray, M: int):
@@ -90,21 +135,29 @@ def _launch(poses, ei, ej, means, infos, mask, free_mask, lam0, *, iters,
     if ei_h.min() < 0 or ej_h.min() < 0 or max(ei_h.max(), ej_h.max()) >= M:
         raise ValueError("edge endpoint out of range")
     row_ptr, inc = _incidence(ei_h, ej_h, M)
+    # each incidence beside the edge's other node, and each edge end's
+    # incidence (where the kernel stores the edge's block for that end)
+    other = np.where(inc & 1, ei_h[inc >> 1], ej_h[inc >> 1])
+    pos = np.empty(2 * E, np.int32)
+    pos[inc] = np.arange(2 * E, dtype=np.int32)
+    inc = np.stack([inc, other.astype(np.int32)], axis=1)
+    blocks, logS, qmax, smem = launch_geometry(row_ptr)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     args = [
         poses.T.contiguous(), torch.as_tensor(ei_h, **i32),
         torch.as_tensor(ej_h, **i32), means.T.contiguous(), W6,
         free_mask.to(**f32).contiguous(), torch.as_tensor(row_ptr, **i32),
-        torch.as_tensor(inc, **i32),
+        torch.as_tensor(inc, **i32), torch.as_tensor(pos, **i32),
     ]
     L = max(M, 4)  # the stats lanes of the packed result
     out = torch.empty((8, L), **f32)
-    scratch = torch.empty(scratch_floats(M, E), **f32)
+    scratch = torch.empty(scratch_floats(M, E, blocks, 1 << logS), **f32)
     _build.launch(
         "pcg_lm", *(a.data_ptr() for a in args), out.data_ptr(), L,
         scratch.data_ptr(), float(lam0), M, E, iters, cg_iters, float(cg_tol),
-        float(sq_min_delta), torch.cuda.current_stream(dev).cuda_stream,
+        float(sq_min_delta), blocks, logS, qmax, smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _dispatch.count_launch("pcg_lm")
     return out
