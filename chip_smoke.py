@@ -70,10 +70,15 @@ and nothing of the JAX package. Phases, each printing its own line(s):
  15. the NN kernel against its plain version
      (``ops/matching.nearest_neighbor_direct``), bit for bit in indices
      and distances, at the odometry's shape (1 × 360 × 360) and the
-     scan-matching batch's (120 × 360 × 360), with both times and the
-     bound, then on edge cases (N ≠ M with odd counts, N = 1, M = 4,096
-     over 4 source tiles, no valid target, duplicated targets, sources far
-     outside);
+     scan-matching batch's (120 × 360 × 360), with the kernel's device
+     time per launch from a replayed CUDA graph of its launches (the
+     wrapper's host µs per call beside it), the plain version's time and
+     the bound, then on edge cases (N ≠ M with odd counts, N = 1,
+     M = 4,096 over many source tiles, no valid target, duplicated
+     targets, sources far outside), on each path of ``nn_geometry``
+     (32 lanes a source with M = 7 < 32, M = 37 not a multiple of the
+     lanes, one lane a source with N = 361) and on the reference's NaN
+     rule (NaN sources, NaN targets: index M, d2 NaN);
  16. the lesson main paths over examples/run_plicp_odometry.py's 200
      scans at 360 beams, each with the launch counters zeroed first:
      ``ICPOdometry.run``, ``PLICPOdometry.run`` and ``ScanMatchPLICP.run``.
@@ -93,10 +98,15 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      masks equal the CPU's, the mean count within 0.5% of the reference's;
  20. the streamed CR-LM kernel against its plain version on bench_solver's
      rings of 4,096 and 16,384 nodes (K 1,024 and 4,096), then on edge
-     cases (W = 2, W = 8, 32,768 nodes), with both times, the kernels it
-     enqueues and the bound; then both CR-LM kernels on the same graphs
-     (the bench graph at K 256, a 3,072-node ring at K 512), with both
-     times and both times per dependent step;
+     cases (W = 2, W = 8, 32,768 nodes, and a 24,576-node chain with
+     exact measurements at K 4,096 that converges), with both times, the
+     schedule (``solver/cr_stream.stream_schedule``: grid levels, the
+     cluster, launches per LM iteration), the kernels a solve enqueued
+     and how many of them after convergence, and the bound; then both
+     CR-LM kernels on the same graphs (the bench graph at K 256, a
+     3,072-node ring at K 512), with both times and both times per
+     dependent step, and the streamed kernel alone on a 6,144-node ring
+     at K 1,024;
  21. the large-graph main path, with the launch counters zeroed first:
      ``PoseGraphSolver.compute`` on the 4,096- and 16,384-node rings, each
      one streamed-kernel launch and no other, χ² → ~0; their solve ms
@@ -149,7 +159,7 @@ from tpu_slam_torch.ops import gridmap as gm
 from tpu_slam_torch.ops import hector as hec
 from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
 from tpu_slam_torch.ops.cuda.hector_fused import hector_match_fused
-from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda
+from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda, nn_geometry
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
 from tpu_slam_torch.ops.features import extract_corner_features
 from tpu_slam_torch.ops.icp import icp_match
@@ -164,7 +174,7 @@ from tpu_slam_torch.parallel.distributed_step import (
 )
 from tpu_slam_torch.solver import banded, cr_lm, pcg_lm
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
-from tpu_slam_torch.solver.cr_stream import streamed_cr_lm
+from tpu_slam_torch.solver.cr_stream import stream_schedule, streamed_cr_lm
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
 from tpu_slam_torch.solver.pose_graph import _route, _sq_min_delta
 from tpu_slam_torch.utils.evaluation import ate_rmse
@@ -240,6 +250,47 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> tuple[float, float, str]:
+    """Device milliseconds per call of a small kernel's wrapper ``fn``,
+    free of the host: ``reps`` calls captured in one CUDA graph, whose
+    replay (after a warm one) is timed with CUDA events. Where the card
+    refuses the capture, the profiler's device time per launch instead.
+    Also the host's µs per call of ``fn`` itself (``reps`` calls enqueued
+    back to back). Returns (ms, host µs, how the ms was taken)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps, host_us, "CUDA graph replay"
+    except RuntimeError as err:
+        print(f"graph capture refused ({err}); profiler time instead",
+              flush=True)
+        _w, _b, per = device_profile(lambda: [fn() for _ in range(reps)])
+        n, us = next(v for k, v in per.items() if k != "other")
+        return us / n / 1e3, host_us, "profiler, per launch"
 
 
 def plain_plicp(*args, **kw):
@@ -852,12 +903,13 @@ def phase_mission_rate(cfg, scans, odom) -> None:
     print("stage timer (3 runs):\n" + timer.report(), flush=True)
 
 
-def device_profile(fn):
+def device_profile(fn, stages: bool = False):
     """Run ``fn`` once under ``torch.profiler``, tracing the card alone (a
     host trace of every small op costs more to record and read than the
     run): (wall µs, device busy µs as the union of the kernel intervals,
     {kernel: (launches, device µs)}), each hand-written kernel by name and
-    the rest as "other"."""
+    the rest as "other"; with ``stages``, a kernel of several stages
+    (``<key>_<stage>_kernel``) by stage."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -882,6 +934,9 @@ def device_profile(fn):
         key = next((k for k in _dispatch.LAUNCHES
                     if re.search(rf"(^|\W){k}_(\w+_)?kernel\b", name)),
                    "other")
+        stage = re.search(rf"(^|\W){key}_(\w+?)_kernel\b", name)
+        if stages and stage:
+            key = f"{key}_{stage[2]}"
         n, us = per.get(key, (0, 0.0))
         per[key] = (n + 1, us + e - s)
     return wall_us, busy, per
@@ -1519,12 +1574,15 @@ def nn_bound(B: int, N: int, M: int) -> dict:
     return bound(B * (8 * N + 9 * M + 12 * N), 6.0 * B * N * M)
 
 
-def nn_compare(label, src, tgt, tv, reps=None) -> dict:
+def nn_compare(label, src, tgt, tv, reps=None, lanes=None) -> dict:
     """The NN kernel against its plain version, equal bit for bit in idx
-    and d2; with ``reps``, both times from CUDA events, and
-    ``torch.cdist(...).min(-1)``'s for information (it ignores the flags,
-    so it is no library time of this function). Returns (the numbers of
-    the kernels line, the kernel's indices)."""
+    and d2; with ``reps``, the kernel's device time per launch
+    (``graph_ms``, with the wrapper's host µs per call beside it), the
+    plain version's from CUDA events, and ``torch.cdist(...).min(-1)``'s
+    for information (it ignores the flags, so it is no library time of
+    this function). With ``lanes`` = G, the case must take G lanes a
+    source. Returns (the numbers of the kernels line, the kernel's
+    indices)."""
 
     def kern():
         return nearest_neighbor_cuda(src, tgt, tv)
@@ -1538,37 +1596,50 @@ def nn_compare(label, src, tgt, tv, reps=None) -> dict:
                                                 pd.view(torch.int32))
     B, N, _ = src.shape
     M = tgt.shape[1]
+    geo = nn_geometry(B, N, M, torch.cuda.get_device_properties(
+        src.device).multi_processor_count)
     work = nn_bound(B, N, M)
     times = "not timed"
-    out = {"max_abs_err": float((kd.double() - pd.double()).abs().max()),
+    finite = torch.isfinite(kd) & torch.isfinite(pd)
+    out = {"max_abs_err": float((kd.double() - pd.double())[finite].abs()
+                                .max()) if bool(finite.any()) else 0.0,
            "ms": None, "plain_ms": None, **work}
     if reps:
-        out["ms"], out["plain_ms"] = cuda_ms(kern, reps[0]), cuda_ms(plain,
-                                                                     reps[1])
+        out["ms"], host_us, how = graph_ms(kern, reps[0])
+        out["plain_ms"] = cuda_ms(plain, reps[1])
         cdist_ms = cuda_ms(lambda: torch.cdist(src, tgt).min(-1), reps[0])
-        times = (f"kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+        times = (f"kernel {out['ms']:.4f} ms ({how}; the wrapper's host "
+                 f"{host_us:.1f} us a call) plain {out['plain_ms']:.3f} ms "
                  f"(cdist+min {cdist_ms:.4f} ms, for information)")
-    print(f"{label}: B={B} N={N} M={M} valid targets {int(tv.sum())} "
-          f"idx and d2 bit-equal {same} d2 max {float(kd.max()):.6g}; "
-          f"{times} bound {work['bound_ms']:.6f} ms ({work['bound_by']})",
-          flush=True)
+    print(f"{label}: B={B} N={N} M={M} geometry G={geo.lanes} "
+          f"{geo.threads} threads x ({B}, {geo.tiles}) "
+          f"blocks valid targets {int(tv.sum())} idx and d2 bit-equal "
+          f"{same} d2 max {float(kd.max()):.6g}; {times} bound "
+          f"{work['bound_ms']:.6f} ms ({work['bound_by']})", flush=True)
     if not same or ki.shape != (B, N):
         raise AssertionError(f"{label}: the NN kernel disagrees with its "
                              "plain version")
+    if lanes and lanes != geo.lanes:
+        raise AssertionError(f"{label}: took G={geo.lanes}, not the "
+                             f"G = {lanes} it is for")
     return out, ki
 
 
 def phase_nn(dev) -> dict:
     """The NN kernel against ``nearest_neighbor_direct`` at the odometry's
     shape (1, 360, 360), the scan-matching batch's (120, 360, 360), and
-    off them: N ≠ M with odd counts, N = 1, M = 4,096 over four source
-    tiles, no valid target, duplicated targets, sources far outside.
+    off them: N ≠ M with odd counts, N = 1, M = 4,096 over many source
+    tiles, no valid target, duplicated targets, sources far outside, and
+    each path of ``nn_geometry``: G = 32 lanes with M < 32, M not a
+    multiple of G, one lane a source with N = 361; and the reference's NaN
+    rule, NaN sources and NaN targets (a row with a NaN distance: index
+    M, d2 NaN).
     Returns the odometry shape's numbers."""
     _c, scans, _g = lesson_recipe(dev, 2)
     src, _sv, tgt, tv = masked_pairs(scans)
     odo, _i = nn_compare("nn odometry", src, tgt, tv, reps=(500, 50))
     _c, (bs, _bsv, bt, btv), _g = scan_matching_recipe(dev)
-    nn_compare("nn scan-matching batch", bs, bt, btv, reps=(50, 5))
+    nn_compare("nn scan-matching batch", bs, bt, btv, reps=(200, 5))
     g = torch.Generator().manual_seed(5)
 
     def pts(*shape, scale=3.0):
@@ -1580,7 +1651,7 @@ def phase_nn(dev) -> dict:
     nn_compare("edge nn N != M, odd counts", pts(3, 101), pts(3, 77),
                flags(3, 77))
     nn_compare("edge nn N = 1", pts(4, 1), pts(4, 360), flags(4, 360))
-    nn_compare("edge nn M = 4,096, 4 source tiles", pts(2, 1000),
+    nn_compare("edge nn M = 4,096, many source tiles", pts(2, 1000),
                pts(2, 4096, scale=10.0), flags(2, 4096))
     # no valid target: d2 = fl(d + 1e12), whose ulp (65,536) swallows the
     # differences between near targets, so near sources tie at index 0;
@@ -1602,6 +1673,34 @@ def phase_nn(dev) -> dict:
         raise AssertionError("duplicated targets: a later copy won")
     nn_compare("edge nn sources far outside", pts(2, 64) + 5e3, pts(2, 300),
                flags(2, 300))
+    # the geometry's paths: G = 32 with M < 32 (lanes without a target),
+    # M = 37 (not a multiple of G = 32), G = 1 with N = 361
+    nn_compare("edge nn G = 32, M = 7", pts(1, 5), pts(1, 7), flags(1, 7),
+               lanes=32)
+    nn_compare("edge nn M = 37 over 32 lanes", pts(1, 100), pts(1, 37),
+               flags(1, 37), lanes=32)
+    nn_compare("edge nn 1 lane a source, N = 361", pts(400, 361),
+               pts(400, 50), flags(400, 50), lanes=1)
+    # the reference's NaN rule: a source with a NaN distance to any target
+    # of its pair gets (M, NaN); a NaN target (valid or not) poisons its
+    # pair
+    nan_src = pts(2, 360)
+    nan_src[0, ::7, 0] = float("nan")
+    nan_src[1, ::5, 1] = float("nan")
+    nan_tgt = pts(3, 360)
+    nan_tgt[1, 11, 0] = float("nan")
+    nan_tgt[2, 200, 1] = float("nan")
+    nan_tv = flags(3, 360)
+    nan_tv[2, 200] = False
+    for label, s_, t_, v_ in (
+            ("edge nn NaN sources", nan_src, pts(2, 360), flags(2, 360)),
+            ("edge nn NaN targets", pts(3, 360), nan_tgt, nan_tv)):
+        _o, idx = nn_compare(label, s_, t_, v_)
+        nan_rows = (torch.isnan(s_).any(-1)
+                    | torch.isnan(t_).any(-1).any(-1)[:, None])
+        if not (torch.equal(idx == 360, nan_rows) and bool(nan_rows.any())):
+            raise AssertionError(f"{label}: index M not exactly on the NaN "
+                                 "rows")
     return odo
 
 
@@ -1971,17 +2070,23 @@ def streamed_compare(label: str, dev, poses, edges, reps: int = 3) -> dict:
           and (dpose <= LM_POSE_TOL or not converged)
           and (max(kc, pc) <= 1e-6 * c0 or abs(kc - pc) <= LM_COST_RTOL * pc))
     ms = cuda_ms(lambda: run(streamed_cr_lm, T), reps)
-    per_iter = 3 * (spec.K.bit_length() - 1) + 6
+    sched = stream_schedule(spec.W, spec.K)
     work = cr_work(spec, pT8, slots, len(edges), iters)
+    after = sched.kernels(iters, T) - sched.kernels(iters, iters)
     print(f"{label}: nodes={len(poses)} edges={len(edges)} W={spec.W} "
           f"K={spec.K} after {STREAM_SHORT_ITERS} iterations pose max|d|="
           f"{short:.3e}; after {T}: pose max|d|={dpose:.3e} cost0 {c0:.6g} "
           f"cost kernel {kc:.6g} plain {pc:.6g} iters kernel {iters} plain "
           f"{int(p[3, 3])} good {int(k[3, 2])}/{int(p[3, 2])}; kernel {ms:.3f} "
-          f"ms plain {plain_ms:.3f} ms bound {work['bound_ms']:.5f} ms "
-          f"({work['bound_by']}); one wrapper launch enqueues "
-          f"{4 + T * per_iter} kernels, {per_iter} per LM iteration, of which "
-          f"{4 + iters * per_iter} run", flush=True)
+          f"ms ({ms / max(iters, 1):.4f} ms an LM iteration) plain "
+          f"{plain_ms:.3f} ms bound {work['bound_ms']:.5f} ms "
+          f"({work['bound_by']}); schedule: grid levels "
+          f"{list(sched.grid_levels)}, cluster from h0={sched.h0} "
+          f"({sched.cluster[0]} blocks x {sched.cluster[1]} warps, "
+          f"{sched.cluster[2]} B shared), {sched.per_iter} launches per LM "
+          f"iteration; the solve enqueued {sched.kernels(iters, T)} kernels "
+          f"({sched.iterations_enqueued(iters, T)} iterations in chunks of "
+          f"{sched.chunk}), {after} of them after convergence", flush=True)
     if not ok:
         raise AssertionError(f"{label}: the streamed CR-LM kernel disagrees "
                              "with its plain version")
@@ -1993,7 +2098,9 @@ def phase_cr_stream(dev) -> dict:
     """The streamed CR-LM kernel against its plain version on bench_solver's
     rings of 4,096 (K 1,024) and 16,384 nodes (K 4,096), then on edge
     cases: W = 2 (a plain 200-node ring, K 128), W = 8 (a 300-node chain
-    with stride-7 skip edges, K 128) and 32,768 nodes (K 8,192). Returns
+    with stride-7 skip edges, K 128), 32,768 nodes (K 8,192) and a
+    24,576-node chain with exact measurements and an edge to the sixth
+    node on (W 6, K 4,096), which converges. Returns
     the 4,096-node ring's numbers, the larger ring whose two solves both
     converge (its max_abs_err the full solves' pose gap)."""
     out = streamed_compare("cr_stream ring", dev, *bench_ring(4096))
@@ -2005,6 +2112,10 @@ def phase_cr_stream(dev) -> dict:
                      *skip_graph(300, strides=(7,), seed=29))
     streamed_compare("edge cr_stream ring", dev, *bench_ring(32768),
                      reps=2)
+    # a deep handoff held to convergence: exact measurements, W 6, K 4,096
+    # (three wide levels before the cluster)
+    streamed_compare("edge cr_stream exact chain", dev,
+                     *exact_chain(24576, strides=(6,), every=True), reps=2)
     return out
 
 
@@ -2012,10 +2123,13 @@ def phase_cr_both(dev) -> None:
     """Both CR-LM kernels on the same inputs, where both take them: the
     1,024-node bench graph (K 256) and a 3,072-node bench_solver ring at
     K 512, the largest K the single-launch kernel's route takes. They
-    must agree as ``streamed_compare``'s full solves do."""
+    must agree as ``streamed_compare``'s full solves do. Then the streamed
+    kernel alone on a 6,144-node ring at K 1,024, with its time per
+    dependent step beside theirs."""
     cfg = SolverConfig()
     for label, (poses, edges) in (("bench graph", bench_graph()),
-                                  ("ring", bench_ring(3072))):
+                                  ("ring", bench_ring(3072)),
+                                  ("ring", bench_ring(6144))):
         spec, pT8, slots = solver_from_numpy(cfg, poses, edges,
                                              dev).direct_inputs()
         kw = dict(W=spec.W, K=spec.K, iters=cfg.max_iterations,
@@ -2027,6 +2141,20 @@ def phase_cr_both(dev) -> None:
         def streamed():
             return streamed_cr_lm(pT8, slots, cfg.initial_lambda, **kw)
 
+        if spec.K > cr_lm.K_MAX:  # past the single-launch kernel's route
+            b = streamed()
+            torch.cuda.synchronize()
+            ms_b = cuda_ms(streamed, 3)
+            sb = cr_steps(spec.K, int(b[3, 3]))
+            print(f"cr_stream alone on the {label}: nodes={len(poses)} "
+                  f"W={spec.W} K={spec.K} cost0 {float(b[3, 0]):.6g} cost "
+                  f"{float(b[3, 1]):.6g} iters {int(b[3, 3])}; cr_stream "
+                  f"{ms_b:.3f} ms; dependent steps {sb}, "
+                  f"{ms_b / sb * 1e3:.3f} µs a step", flush=True)
+            if not (bool(torch.isfinite(b).all())
+                    and float(b[3, 1]) <= 1e-6 * float(b[3, 0])):
+                raise AssertionError(f"{label}: χ² did not reach ~0")
+            continue
         a, b = single(), streamed()
         torch.cuda.synchronize()
         d = float(pose_gap(a[0:3].T, b[0:3].T).max())
@@ -2088,7 +2216,7 @@ def phase_large_graph_main(dev) -> dict:
                 and st.final_cost <= 1e-6 * st.initial_cost):
             raise AssertionError(f"{M}-node ring: χ² did not reach ~0")
     reset(16384)
-    prof = device_profile(lambda: solvers[16384].compute())
+    prof = device_profile(lambda: solvers[16384].compute(), stages=True)
     print(profile_line("large-graph solve, 16,384 nodes", *prof), flush=True)
     return launches
 

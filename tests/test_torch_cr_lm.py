@@ -164,8 +164,10 @@ def test_kernel_scratch_size_covers_the_layout():
         6 * W * K + 4 * n * n * K + 3 * n * K + 2 * W * 12 * W * K)
     from tpu_slam_torch import _build
 
-    src = (_build.CSRC / "cr_lm.cu").read_text()
+    # warp_floats lives in the warp code both CR kernels share
+    src = (_build.CSRC / "cr_warp.cuh").read_text()
     assert "return 5 * n * n + 2 * n;" in src  # warp_floats
+    assert '#include "cr_warp.cuh"' in (_build.CSRC / "cr_lm.cu").read_text()
     for W in range(1, 9):
         n = 3 * W
         assert cr_lm.warp_smem_bytes(W) == 4 * (5 * n * n + 2 * n)

@@ -29,7 +29,8 @@ def _case(name):
     B, N, M = {"random": (3, 50, 70), "b_not_multiple_of_8": (5, 33, 41),
                "n_not_m": (2, 97, 13), "one_source": (3, 1, 40),
                "ties": (2, 24, 30), "no_valid": (2, 20, 25),
-               "far_sources": (2, 16, 30)}[name]
+               "far_sources": (2, 16, 30), "nan_sources": (2, 40, 50),
+               "nan_targets": (3, 30, 40)}[name]
     src = rng.normal(0, 3, (B, N, 2)).astype(np.float32)
     tgt = rng.normal(0, 3, (B, M, 2)).astype(np.float32)
     tv = rng.random((B, M)) > 0.2
@@ -44,11 +45,22 @@ def _case(name):
         src[0, :4] = 200.0  # d + 1e12 with d past 32,768 m²: indices move
     if name == "far_sources":
         src[:, :8] += np.float32(5e3)
+    if name == "nan_sources":
+        # NaN in x on some sources of pair 0, in y on some of pair 1
+        src[0, ::3, 0] = np.nan
+        src[1, ::4, 1] = np.nan
+    if name == "nan_targets":
+        # a NaN target, valid in pair 1 and invalid in pair 2, makes every
+        # distance of its pair NaN somewhere; pair 0 stays clean
+        tgt[1, 7, 0] = np.nan
+        tv[1, 7] = True
+        tgt[2, 30, 1] = np.nan
+        tv[2, 30] = False
     return src, tgt, tv
 
 
 CASES = ["random", "b_not_multiple_of_8", "n_not_m", "one_source", "ties",
-         "no_valid", "far_sources"]
+         "no_valid", "far_sources", "nan_sources", "nan_targets"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -85,6 +97,134 @@ def test_direct_rounds_the_squares_once():
             for x, y in zip(dx.tolist(), (dy * dy).tolist())]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
     assert (got.numpy() != dx * dx + dy * dy).any()
+
+
+def _model_case(name):
+    """CASES, and one more for the lane split: fewer targets than lanes."""
+    if name in CASES:
+        return _case(name)
+    rng = np.random.default_rng(8)
+    B, N, M = {"m_below_g": (3, 30, 5)}[name]
+    src = rng.normal(0, 3, (B, N, 2)).astype(np.float32)
+    tgt = rng.normal(0, 3, (B, M, 2)).astype(np.float32)
+    tv = rng.random((B, M)) > 0.2
+    return src, tgt, tv
+
+
+MODEL_EXTRA = ["m_below_g"]
+
+
+def _lane_split_model(src, tgt, tv, G):
+    """csrc/nn.cu's lane split, in plain torch: lane g of a source's G
+    lanes scans targets g, g + G, g + 2G, … from (+inf, g), keeps the first
+    index of its minimum with a strict < and flags a NaN distance, a
+    flagged lane taking (NaN, M); then the lanes merge (d2, index) in the
+    kernel's xor butterfly (offsets G/2, …, 1): a NaN lane wins, else the
+    smaller d2, on equal d2 the smaller index. The distances are the
+    kernel's: fma(dx, dx, dy·dy) + (0 or 1e12)."""
+    dx = src[..., :, None, 0] - tgt[..., None, :, 0]
+    dy = src[..., :, None, 1] - tgt[..., None, :, 1]
+    pen = torch.where(tv, torch.tensor(0.0), torch.tensor(1e12))
+    d2 = tmatch._fma_squares(dx, dy) + pen[..., None, :]
+    B, N, M = d2.shape
+    lanes = torch.arange(G)
+    best = torch.full((B, N, G), float("inf"))
+    arg = lanes.expand(B, N, G).clone()
+    nan = torch.zeros((B, N, G), dtype=torch.bool)
+    for j0 in range(0, M, G):
+        j = j0 + lanes
+        d = torch.full((B, N, G), float("inf"))
+        d[..., j < M] = d2[..., j[j < M]]
+        nan |= torch.isnan(d)
+        take = d < best
+        best = torch.where(take, d, best)
+        arg = torch.where(take, j, arg)
+    best = torch.where(nan, float("nan"), best)
+    arg = torch.where(nan, M, arg)
+    o = G // 2
+    while o:
+        ob, oa = best[..., lanes ^ o], arg[..., lanes ^ o]
+        win = ~torch.isnan(best) & (torch.isnan(ob) | (ob < best)
+                                    | ((ob == best) & (oa < arg)))
+        best = torch.where(win, ob, best)
+        arg = torch.where(win, oa, arg)
+        o //= 2
+    assert (arg == arg[..., :1]).all() and torch.equal(
+        best.view(torch.int32), best[..., :1].expand_as(best).view(torch.int32))
+    return arg[..., 0], best[..., 0]
+
+
+@pytest.mark.parametrize("G", [1, 2, 8, 32])
+@pytest.mark.parametrize("name", CASES + MODEL_EXTRA)
+def test_lane_split_equals_direct_bit_for_bit(name, G):
+    src, tgt, tv = map(torch.as_tensor, _model_case(name))
+    mi, md = _lane_split_model(src, tgt, tv, G)
+    di, dd = tmatch.nearest_neighbor_direct(src, tgt, tv)
+    assert torch.equal(mi, di)
+    assert torch.equal(md.view(torch.int32), dd.view(torch.int32))
+    # the reference's NaN rule: a row with a NaN distance gets M, NaN
+    M = tgt.shape[1]
+    nan = torch.isnan(src).any(-1) | torch.isnan(tgt).any((-2, -1))[:, None]
+    assert torch.equal(di == M, nan)
+    assert bool(nan.any()) == name.startswith("nan")
+    assert torch.isnan(dd[nan]).all() and not torch.isnan(dd[~nan]).any()
+
+
+# chip_smoke's NN shapes (phase 15 and the lesson paths), and the edges of
+# the geometry: one target, a pair of a million sources, batches that fill
+# the card at one lane a source, and a card with fewer SMs
+GEOMETRY_SHAPES = [
+    (1, 360, 360), (120, 360, 360), (3, 101, 77), (4, 1, 360),
+    (2, 1000, 4096), (2, 360, 360), (2, 90, 180), (2, 64, 300), (1, 5, 7),
+    (1, 100, 37), (400, 361, 50), (800, 361, 50), (199, 360, 360),
+    (1, 1, 1), (1, 1_000_000, 10), (512, 360, 360), (1, 360, 4096),
+]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_nn_geometry_covers_every_source_and_target_once(shape, sms):
+    from tpu_slam_torch import _build
+
+    B, N, M = shape
+    geo = cuda_nn.nn_geometry(B, N, M, sms)
+    G = geo.lanes
+    assert G in (1, 2, 4, 8, 16, 32)
+    assert 32 <= geo.threads <= cuda_nn.MAX_THREADS and geo.threads % 32 == 0
+    assert 1 <= geo.tiles <= cuda_nn.MAX_TILES and B < 2 ** 31
+    # every source once: tile y, thread t serves source
+    # y·tile + t // G (tile = threads / G), written by its group's lane 0
+    # where < N
+    tile = geo.threads // G
+    written = [y * tile + t // G
+               for y in range(geo.tiles) for t in range(0, geo.threads, G)]
+    assert sorted(i for i in written if i < N) == list(range(N))
+    assert (geo.tiles - 1) * tile < N  # no tile without a source
+    # the lanes' strided shares cover the targets once (lanes past M: none)
+    shares = [j for g in range(G) for j in range(g, M, G)]
+    assert sorted(shares) == list(range(M))
+    # the staged targets fit a block, at the cap too
+    assert geo.smem == 16 * M
+    assert 16 * cuda_nn.MAX_TARGETS <= _build.SMEM_PER_BLOCK
+    # G doubles only while the card is not yet full
+    fill = sms * cuda_nn.LANES_PER_SM
+    assert G == 1 or B * N * G // 2 < fill
+    assert G == 32 or B * N * G >= fill
+
+
+def test_nn_kernel_constants_are_the_wrappers():
+    import re
+
+    from tpu_slam_torch import _build
+
+    src = (_build.CSRC / "nn.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("MAX_THREADS") == cuda_nn.MAX_THREADS
+    assert const("MAX_LANES") == cuda_nn.MAX_LANES
+    assert len(_build.SIGNATURES["nn"][1]) == 13
 
 
 @pytest.mark.parametrize("name", ["random", "n_not_m", "far_sources"])

@@ -51,8 +51,9 @@ SIGNATURES = {
     ),
     "cr_stream": (
         "cr_stream_launch",
-        # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta, stream
-        [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _VP],
+        # pT8, slots, out, scratch, lam0, W, K, iters, sq_min_delta, h0,
+        # blocks, warps, smem, chunk, stream
+        [_VP, _VP, _VP, _VP, _F, _I, _I, _I, _F, _I, _I, _I, _I, _I, _VP],
     ),
     "pcg_lm": (
         "pcg_lm_launch",
@@ -76,8 +77,9 @@ SIGNATURES = {
     ),
     "nn": (
         "nn_launch",
-        # src, tgt, tgt_valid, idx, d2, B, N, M, stream
-        [_VP] * 5 + [_I] * 3 + [_VP],
+        # src, tgt, tgt_valid, idx, d2, B, N, M, lanes, threads, tiles,
+        # smem, stream
+        [_VP] * 5 + [_I] * 7 + [_VP],
     ),
 }
 

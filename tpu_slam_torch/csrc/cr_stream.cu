@@ -1,6 +1,7 @@
 // The whole doSPA Levenberg-Marquardt solve of a banded pose graph, with an
 // exact block cyclic-reduction (CR) step, at any power-of-two number K of
-// supernodes: one train of grid-wide kernels per solve.
+// supernodes: per LM iteration a short train of grid-wide kernels and one
+// thread-block cluster.
 //
 // Replaces: tpu_slam/solver/cr_stream.py::streamed_cr_lm (its Pallas
 // kernels _make_assemble_kernel, _make_cost_kernel, _make_elim_kernel,
@@ -10,54 +11,82 @@
 // the 16,384-node ring (W = 6, K = 4,096 supernodes of n = 3W = 18
 // unknowns) is ~0.3 GFLOP over ~20 MB of blocks, but CR is log2(K)
 // dependent levels, each a small serial n x n Cholesky and triangular
-// solve per supernode, and every level costs two launches: about
-// 3 log2(K) + 6 launches per LM iteration (42 at K = 4,096).
+// solve per supernode, and a level run as its own kernels costs their
+// launches and the gaps between them.
 //
-// Design: each level is two kernels, an elimination over the odd
-// survivors k = h(2j+1) and an update over the even ones k = 2hj, one
-// block per supernode; survivors are addressed by stride, so nothing is
-// compacted or shifted between levels. A block works on its supernode's
-// n x n blocks in shared memory: the Cholesky column by column across the
-// block's threads, then one thread per right-hand-side column of
-// [B_prev^T | B | r]. The blocks live in device memory as [supernode][row]
-// [col], so the threads of a block read neighbouring addresses; the
-// stored eliminations X1 = D^-1 B_prev^T, X2 = D^-1 B and Xr = D^-1 r sit
-// at the eliminated supernode's own index, K (2n^2 + n) floats for all
-// levels. Assembly runs one thread per flat lane f = a K + k (node a of
-// supernode k): each block of D belongs to the lane of its smaller node
-// offset, and the high nodes' shares go through a staging array that
-// their owner gathers, so every sum has a fixed order and there are no
-// atomics. The cost is a per-lane chi^2 and a two-pass fixed-order sum.
-// The LM state (lambda, its increment, cost, counts, which of two pose
-// buffers holds the current poses, done) lives on the device: every
-// kernel of an iteration returns at once when done is set, so the host
-// enqueues the whole train and reads nothing. The TPU pipeline's survivor
+// Design (solver/cr_stream.py::stream_schedule gives its shape):
+// - The wide levels, h < h0 = K / 128, have more than 128 active
+//   supernodes. Each is two grid launches, an elimination over the odd
+//   survivors k = h (2j + 1) and a fold into the even ones k = 2hj, a warp
+//   per supernode and WIDE_WARPS warps a block, with the warp code of
+//   csrc/cr_warp.cuh (what cr_lm.cu runs): at K = 4,096 the first level's
+//   2,048 eliminations fill the SMs with warps.
+// - From level h0 on at most 128 supernodes are active. One cluster launch
+//   (cr_lm.cu's design: up to 8 blocks of up to 8 warps, a warp per active
+//   supernode, cluster barriers between levels; solver/cr_lm.py's
+//   launch_geometry(W, K / h0) sizes it) runs the remaining levels, the
+//   top solve and the back-substitution down to h0; the wide levels'
+//   back-substitution follows, a grid launch each. The cluster could take
+//   512 (K_MAX); measured on the H100, a cluster level of 256 or 512
+//   supernodes (two or four rounds of its 64 warps) costs more than a
+//   wide level's three launches, one of 128 about the same.
+// - Assembly and chi^2 run a block per 32 flat lanes f = a K + k (node a
+//   of supernode k) and a warp per slot distance, so that no thread walks
+//   all of a lane's edges and neighbouring threads read neighbouring
+//   lanes; the candidate step runs a thread per lane. Assembly
+//   writes each entry of D, B and r once: a lane owns the blocks (a, b)
+//   and (b, a) of D for b >= a, and recomputes the high-node terms of the
+//   edges that end at it rather than reading them from their low node.
+//   The cost kernel of the candidate also takes the LM decision: the last
+//   of its blocks to finish (a ticket counter) sums the per-block partials
+//   in block order, so every sum has a fixed order whichever block that
+//   is.
+// - The LM state (lambda, its increment, cost, counts, which of two pose
+//   buffers holds the current poses, done) lives on the device, and every
+//   kernel returns at once when done is set. The host enqueues CHUNK
+//   iterations at a time and reads done between chunks, so at most
+//   CHUNK - 1 iterations' launches run after convergence.
+// So an LM iteration is 3 log2(h0) + 4 launches: 19 at K = 4,096, 13 at
+// K = 1,024, 4 up to K = 128. The stored eliminations X1 = D^-1 B_prev^T,
+// X2 = D^-1 B and Xr = D^-1 r sit at the eliminated supernode's own index,
+// K (2n^2 + n) floats for all levels. The TPU pipeline's survivor
 // compaction, lane shifts and chunking are layout work for its vector
 // unit and are not carried over.
 
+#include <cooperative_groups.h>
+
+#include "cluster.cuh"
 #include "cr_edges.cuh"
+#include "cr_warp.cuh"
 
 namespace {
 
-constexpr int STATE_FLOATS = 16;   // room for State at the scratch's head
-constexpr int BLOCK = 256;         // threads of the per-lane kernels
-constexpr int NMAX = 24;           // n = 3W, W <= 8
-constexpr int ELIM_THREADS = 64;   // >= 2 NMAX + 1 right-hand sides
-constexpr int UPDATE_THREADS = 128;
+constexpr int STATE_FLOATS = 16;  // room for State at the scratch's head
+constexpr int BLOCK = 256;        // threads of the per-lane kernels
+constexpr int LANES = 32;         // flat lanes a block of the edge kernels
+constexpr int K_MAX = 512;        // active supernodes the cluster may take
+constexpr int WIDE_WARPS = 4;     // warps a block of the wide levels
+constexpr int MAX_WARPS = 8;      // warps a block of the cluster
+constexpr int MAX_CLUSTER = 8;    // portable cluster size
+constexpr int MAX_THREADS = 32 * MAX_WARPS;
 
 struct State {
   float lam, laminc, cost, cost0, good, it;
-  int cur;   // the pose buffer that holds the current poses
-  int done;  // set once ||delta||^2 < sq_min_delta
+  int cur;          // the pose buffer that holds the current poses
+  int done;         // set once ||delta||^2 < sq_min_delta
+  unsigned ticket;  // blocks of the running cost kernel that have finished
 };
+static_assert(sizeof(State) <= STATE_FLOATS * sizeof(float),
+              "State outgrows its room in the scratch");
 
 struct Ctx {
-  int W, K, n, WK, nblk;
+  int W, K, n, WK;
+  int nblk;            // blocks of the per-lane kernels (a thread a lane)
+  int eblk;            // blocks of the edge kernels (LANES lanes a block)
   const float* slots;  // (NBANKS * W * SLOT_ROWS, WK)
   const float* free;   // (WK,)
   State* st;
   float* P[2];         // two (3, WK) pose buffers: current and candidate
-  float* stage;        // (NBANKS * W * STAGE_ROWS, WK)
   float* D;            // (K, n, n)
   float* B;            // (K, n, n), coupling to the next active supernode
   float* X1;           // (K, n, n)
@@ -66,7 +95,7 @@ struct Ctx {
   float* Xr;           // (K, n)
   float* x;            // (K, n)
   float* part_sq;      // (nblk,) per-block sums of ||delta||^2
-  float* part_cost;    // (nblk,) per-block sums of chi^2
+  float* part_cost;    // (eblk,) per-block sums of chi^2
 };
 
 __device__ __forceinline__ float* mat(float* m, const Ctx& c, int k) {
@@ -75,276 +104,258 @@ __device__ __forceinline__ float* mat(float* m, const Ctx& c, int k) {
 
 // --- set-up, cost and the LM step ------------------------------------------
 
-__global__ void cr_stream_start_kernel(Ctx c, const float* __restrict__ pT8,
-                             float lam0) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f == 0) {
+// The edge kernels run a block per LANES flat lanes f = a K + k and a warp
+// per slot distance: thread (w, lane) of the block takes lane
+// f = LANES blockIdx.x + lane and, for w < W, the edges of distance
+// d = w + 1 (both banks) whose low node is f; in the assembly warp W + w
+// takes those of distance w + 1 that end at f (recomputed from their low
+// node's slots). Neighbouring threads take neighbouring lanes, so their
+// loads of the slots and poses coalesce.
+struct EdgeThread {
+  int f, d;
+  bool live;  // f < WK
+  bool high;  // the edges that end at f
+};
+
+__device__ __forceinline__ EdgeThread edge_thread(const Ctx& c) {
+  const int w = threadIdx.x >> 5, f = blockIdx.x * LANES + (threadIdx.x & 31);
+  return {f, w % c.W + 1, f < c.WK, w >= c.W};
+}
+
+// chi^2 of this thread's low-node edges at poses P.
+__device__ float edge_cost_sum(const Ctx& c, const float* P, EdgeThread t) {
+  float acc = 0.f;
+  if (t.live && !t.high) {
+    const int a = t.f / c.K, k = t.f % c.K;
+    Edge e;
+    for (int bank = 0; bank < NBANKS; ++bank)
+      if (edge_terms(c, P, bank, t.d, a, k, e)) acc += edge_cost(e);
+  }
+  return acc;
+}
+
+// Thread 0 has written this block's partial sums: take a ticket. True in
+// every thread of the last block to finish, which then sees every
+// block's partials (threadFenceReduction's pattern).
+__device__ bool last_block(const Ctx& c) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&c.st->ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The per-block partials in block order; every thread gets the total.
+__device__ float ordered_sum(const float* part, int nblk, float* red) {
+  float q = 0.f;
+  for (int b = threadIdx.x; b < nblk; b += blockDim.x) q += __ldcg(part + b);
+  return block_sum(q, red);
+}
+
+// Copy the poses in and sum their chi^2; the last block sets the LM state
+// (cost0 = cost). The host zeroes the state, and with it the ticket, first.
+__global__ void cr_stream_setup_kernel(Ctx c, const float* __restrict__ pT8,
+                                       float lam0) {
+  __shared__ float red[33];
+  const EdgeThread t = edge_thread(c);
+  if (t.live && t.d == 1)
+    for (int u = 0; u < 3; ++u) c.P[0][u * c.WK + t.f] = pT8[u * c.WK + t.f];
+  const float acc = block_sum(edge_cost_sum(c, pT8, t), red);
+  if (threadIdx.x == 0) c.part_cost[blockIdx.x] = acc;
+  if (!last_block(c)) return;
+  const float q = ordered_sum(c.part_cost, c.eblk, red);
+  if (threadIdx.x == 0) {
     State* st = c.st;
     st->lam = lam0;
     st->laminc = 2.f;
-    st->cost = st->cost0 = st->good = st->it = 0.f;
+    st->cost = st->cost0 = q;
+    st->good = st->it = 0.f;
     st->cur = 0;
     st->done = 0;
+    st->ticket = 0;
   }
-  if (f < c.WK)
-    for (int u = 0; u < 3; ++u) c.P[0][u * c.WK + f] = pT8[u * c.WK + f];
 }
 
-// Per-block sums of the lanes' chi^2 at the current poses, or at the
-// candidate's.
-__global__ void cr_stream_cost_kernel(Ctx c, int candidate) {
-  __shared__ float red[33];
+// Flat lane f = a K + k (node a of supernode k, chain position p = k W + a)
+// owns the blocks (a, b) and (b, a) of D for b >= a, B's block row a and
+// r's rows of a, and each entry is written once
+// (banded.assemble_supernodes semantics). A block's 32 lanes share a
+// (K is a multiple of 32) and take supernodes k0 ... k0 + 31. Warp w < W
+// sums the terms of the edges of distance d = w + 1 as their low node:
+// block (a, a + d) of D, or of B past the supernode, and the transposed
+// block (a + d, a) of D; warp W + w the high-node terms of the edges
+// p - d -> p. Warp 0 sums the warps' diagonal-block and r terms in warp
+// order, damps them (jitter, then x (1 + lambda) on the diagonal) and
+// masks them: rows and columns of non-free nodes zeroed, identity on
+// their diagonal. Rows 3a .. 3a + 2 of D (from column 3a on) and of B are
+// staged in shared memory and written out by the whole block, a
+// supernode's rows contiguous. Launched with 2 W warps a block.
+__global__ void __launch_bounds__(2 * 8 * LANES)
+    cr_stream_assemble_kernel(Ctx c) {
+  __shared__ float part[2 * 8][12][LANES];  // each warp's Hd (9) and rb (3)
+  __shared__ float rowD[LANES][3][24];      // rows 3a .. 3a + 2 of D
+  __shared__ float rowB[LANES][3][24];      // and of B
   if (c.st->done) return;
-  const int cur = c.st->cur;
-  const float* P = c.P[candidate ? 1 - cur : cur];
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.f;
-  if (f < c.WK) {
-    const int a = f / c.K, k = f % c.K;
-    Edge e;
-    for (int bank = 0; bank < NBANKS; ++bank)
-      for (int d = 1; d <= c.W; ++d)
-        if (edge_terms(c, P, bank, d, a, k, e)) acc += edge_cost(e);
-  }
-  acc = block_sum(acc, red);
-  if (threadIdx.x == 0) c.part_cost[blockIdx.x] = acc;
-}
-
-// The initial cost: the partial sums in a fixed order.
-__global__ void cr_stream_cost0_kernel(Ctx c) {
-  __shared__ float red[33];
-  float q = 0.f;
-  for (int b = threadIdx.x; b < c.nblk; b += blockDim.x) q += c.part_cost[b];
-  q = block_sum(q, red);
-  if (threadIdx.x == 0) c.st->cost0 = c.st->cost = q;
-}
-
-// Lane f = a K + k: zero the D, B and r entries it owns (block (i, j) of D
-// belongs to lane min(i, j)), add its edges' low-node terms and stage the
-// high node's share (banded.assemble_supernodes semantics).
-__global__ void cr_stream_assemble_kernel(Ctx c) {
-  if (c.st->done) return;
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= c.WK) return;
-  const int W = c.W, K = c.K, n = c.n, a = f / K, k = f % K;
+  const EdgeThread t = edge_thread(c);
+  const int W = c.W, K = c.K, n = c.n;
+  const int f = t.live ? t.f : 0, a = f / K, k = f % K, d = t.d;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* P = c.P[c.st->cur];
-  float* Dk = mat(c.D, c, k);
-  float* Bk = mat(c.B, c, k);
-  float* rk = c.r + (size_t)k * n;
-  for (int u = 0; u < 3; ++u) {
-    const int i = 3 * a + u;
-    for (int j = 3 * a; j < n; ++j) Dk[i * n + j] = 0.f;
-    for (int j = 0; j < n; ++j) Bk[i * n + j] = 0.f;
-    rk[i] = 0.f;
-  }
-  for (int i = 3 * a + 3; i < n; ++i)
-    for (int v = 0; v < 3; ++v) Dk[i * n + 3 * a + v] = 0.f;
+  const float* fr = c.free;
+  const float fa = fr[f];
+  float* D = mat(c.D, c, k);
   Edge e;
   float HLL[3][3], HLH[3][3], HHH[3][3], bL[3], bH[3];
-  for (int bank = 0; bank < NBANKS; ++bank)
-    for (int d = 1; d <= W; ++d) {
+  float Hd[3][3] = {}, rb[3] = {};
+  if (t.live && !t.high) {
+    const int bo = a + d;
+    float Hx[3][3] = {};
+    for (int bank = 0; bank < NBANKS; ++bank) {
       if (!edge_terms(c, P, bank, d, a, k, e)) continue;
       edge_blocks(e, HLL, HLH, HHH, bL, bH);
-      const int bo = a + d;
       for (int u = 0; u < 3; ++u) {
         for (int v = 0; v < 3; ++v) {
-          Dk[(3 * a + u) * n + 3 * a + v] += HLL[u][v];
-          if (bo < W) {
-            Dk[(3 * a + u) * n + 3 * bo + v] += HLH[u][v];
-            Dk[(3 * bo + v) * n + 3 * a + u] += HLH[u][v];
-          } else {
-            Bk[(3 * a + u) * n + 3 * (bo - W) + v] += HLH[u][v];
-          }
+          Hd[u][v] += HLL[u][v];
+          Hx[u][v] += HLH[u][v];
         }
-        rk[3 * a + u] += bL[u];
-      }
-      float* st = c.stage + (size_t)((bank * W + d - 1) * STAGE_ROWS) * c.WK + f;
-      for (int u = 0; u < 3; ++u) {
-        for (int v = 0; v < 3; ++v) st[(size_t)(3 * u + v) * c.WK] = HHH[u][v];
-        st[(size_t)(9 + u) * c.WK] = bH[u];
+        rb[u] += bL[u];
       }
     }
-}
-
-// Lane f = a K + k: gather the staged high-node shares into its diagonal
-// block and r, then damp (jitter, then x (1 + lambda) on the diagonal) and
-// mask its entries: rows and columns of non-free nodes zeroed, identity on
-// their diagonal.
-__global__ void cr_stream_gather_kernel(Ctx c) {
-  if (c.st->done) return;
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= c.WK) return;
-  const int W = c.W, K = c.K, n = c.n, a = f / K, k = f % K;
-  float* Dk = mat(c.D, c, k);
-  float* Bk = mat(c.B, c, k);
-  float* rk = c.r + (size_t)k * n;
-  const int p = k * W + a;  // chain position of this node
-  for (int bank = 0; bank < NBANKS; ++bank)
-    for (int d = 1; d <= W; ++d) {
-      const int pl = p - d;
-      if (pl < 0) continue;
-      const int fl = (pl % W) * K + pl / W;
-      const float* sl =
-          c.slots + (size_t)((bank * W + d - 1) * SLOT_ROWS) * c.WK + fl;
-      bool any = false;
-      for (int q = 0; q < 6; ++q) any |= sl[(size_t)(3 + q) * c.WK] != 0.f;
-      if (!any) continue;
-      const float* st =
-          c.stage + (size_t)((bank * W + d - 1) * STAGE_ROWS) * c.WK + fl;
-      for (int u = 0; u < 3; ++u) {
+    // block (a, a + d): inside the supernode (masked by both nodes'
+    // flags), or the coupling to the next one (masked by its flags)
+    if (bo < W) {
+      const float m = fa * fr[bo * K + k];
+      for (int u = 0; u < 3; ++u)
+        for (int v = 0; v < 3; ++v) {
+          rowD[lane][u][3 * bo + v] = Hx[u][v] * m;
+          D[(3 * bo + v) * n + 3 * a + u] = Hx[u][v] * m;
+        }
+    } else {
+      const float m = fa * fr[(bo - W) * K + (k + 1) % K];
+      for (int u = 0; u < 3; ++u)
         for (int v = 0; v < 3; ++v)
-          Dk[(3 * a + u) * n + 3 * a + v] += st[(size_t)(3 * u + v) * c.WK];
-        rk[3 * a + u] += st[(size_t)(9 + u) * c.WK];
+          rowB[lane][u][3 * (bo - W) + v] = Hx[u][v] * m;
+    }
+  } else if (t.live) {
+    const int p = k * W + a;
+    for (int bank = 0; bank < NBANKS && d <= p; ++bank) {
+      if (!edge_terms(c, P, bank, d, (p - d) % W, (p - d) / W, e)) continue;
+      edge_blocks(e, HLL, HLH, HHH, bL, bH);
+      for (int u = 0; u < 3; ++u) {
+        for (int v = 0; v < 3; ++v) Hd[u][v] += HHH[u][v];
+        rb[u] += bH[u];
       }
     }
-  const float one_lam = 1.f + c.st->lam;
+  }
   for (int u = 0; u < 3; ++u) {
-    float& dii = Dk[(3 * a + u) * n + 3 * a + u];
-    dii = (dii + 1e-12f) * one_lam;
-  }
-  const float fa = c.free[f];
-  const int kn = (k + 1) % K;
-  for (int u = 0; u < 3; ++u) {
-    const int i = 3 * a + u;
-    for (int j = 3 * a; j < n; ++j) Dk[i * n + j] *= fa * c.free[(j / 3) * K + k];
-    for (int j = 0; j < n; ++j) Bk[i * n + j] *= fa * c.free[(j / 3) * K + kn];
-    Dk[i * n + i] += 1.f - fa;
-    rk[i] = -rk[i] * fa;
-  }
-  for (int i = 3 * a + 3; i < n; ++i)
-    for (int v = 0; v < 3; ++v)
-      Dk[i * n + 3 * a + v] *= c.free[(i / 3) * K + k] * fa;
-}
-
-// Level h: eliminate the odd survivor k = h (2 blockIdx.x + 1): the
-// Cholesky of D_k (pivot floor 1e-30), then [X1 | X2 | Xr] =
-// D_k^-1 [B_{k-h}^T | B_k | r_k]. With h = K it is the top solve of
-// supernode 0 alone: x_0 = D_0^-1 r_0.
-__global__ void cr_stream_elim_kernel(Ctx c, int h) {
-  __shared__ float L[NMAX * NMAX];
-  __shared__ float Y[NMAX * (2 * NMAX + 1)];
-  if (c.st->done) return;
-  const int n = c.n, t = threadIdx.x, nt = blockDim.x;
-  const bool top = h >= c.K;
-  const int k = top ? 0 : h * (2 * blockIdx.x + 1);
-  const int ncol = top ? 1 : 2 * n + 1;
-  const float* Dk = mat(c.D, c, k);
-  const float* Be = top ? nullptr : mat(c.B, c, k - h);
-  const float* Bk = mat(c.B, c, k);
-  const float* rk = c.r + (size_t)k * n;
-  for (int q = t; q < n * n; q += nt) L[q] = Dk[q];
-  for (int q = t; q < n * ncol; q += nt) {
-    const int i = q / ncol, j = q % ncol;
-    float y;
-    if (j == ncol - 1) y = rk[i];
-    else if (j < n) y = Be[j * n + i];
-    else y = Bk[i * n + j - n];
-    Y[q] = y;
+    for (int v = 0; v < 3; ++v) part[w][3 * u + v][lane] = Hd[u][v];
+    part[w][9 + u][lane] = rb[u];
   }
   __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    const float ljj = sqrtf(fmaxf(L[j * n + j], 1e-30f));
-    __syncthreads();
-    if (t == 0) L[j * n + j] = ljj;
-    for (int i = j + 1 + t; i < n; i += nt) L[i * n + j] /= ljj;
-    __syncthreads();
-    const int w = n - j - 1;
-    for (int q = t; q < w * w; q += nt) {
-      const int i = j + 1 + q / w, m = j + 1 + q % w;
-      if (m <= i) L[i * n + m] -= L[i * n + j] * L[m * n + j];
+  if (w == 0 && t.live) {
+    for (int u = 0; u < 3; ++u) {
+      for (int v = 0; v < 3; ++v) Hd[u][v] = part[0][3 * u + v][lane];
+      rb[u] = part[0][9 + u][lane];
     }
-    __syncthreads();
-  }
-  if (t < ncol) {
-    for (int i = 0; i < n; ++i) {
-      float s = Y[i * ncol + t];
-      for (int m = 0; m < i; ++m) s -= L[i * n + m] * Y[m * ncol + t];
-      Y[i * ncol + t] = s / L[i * n + i];
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      float s = Y[i * ncol + t];
-      for (int m = i + 1; m < n; ++m) s -= L[m * n + i] * Y[m * ncol + t];
-      Y[i * ncol + t] = s / L[i * n + i];
+    for (int o = 1; o < 2 * W; ++o)
+      for (int u = 0; u < 3; ++u) {
+        for (int v = 0; v < 3; ++v) Hd[u][v] += part[o][3 * u + v][lane];
+        rb[u] += part[o][9 + u][lane];
+      }
+    const float one_lam = 1.f + c.st->lam;
+    float* r = c.r + (size_t)k * n + 3 * a;
+    for (int u = 0; u < 3; ++u) {
+      Hd[u][u] = (Hd[u][u] + 1e-12f) * one_lam;
+      for (int v = 0; v < 3; ++v)
+        rowD[lane][u][3 * a + v] = Hd[u][v] * (fa * fa);
+      rowD[lane][u][3 * a + u] += 1.f - fa;
+      r[u] = -rb[u] * fa;
+      // B's blocks (a, b > a) take no edge: a whole band apart
+      for (int j = 3 * a + 3; j < n; ++j) rowB[lane][u][j] = 0.f;
     }
   }
   __syncthreads();
-  if (top) {
-    for (int i = t; i < n; i += nt) c.x[i] = Y[i];
-    return;
+  // the staged rows, each supernode's contiguous: D's from column 3a on,
+  // B's whole (its rows 3a .. 3a + 2 follow each other)
+  const int f0 = blockIdx.x * LANES, ab = f0 / K, k0 = f0 % K;
+  const int wd = n - 3 * ab;
+  for (int q = threadIdx.x; q < LANES * 3 * wd; q += blockDim.x) {
+    const int l = q / (3 * wd), u = q / wd % 3, j = 3 * ab + q % wd;
+    if (f0 + l < c.WK)
+      mat(c.D, c, k0 + l)[(3 * ab + u) * n + j] = rowD[l][u][j];
   }
-  float* X1 = mat(c.X1, c, k);
-  float* X2 = mat(c.X2, c, k);
-  for (int q = t; q < n * n; q += nt) {
-    const int i = q / n, j = q % n;
-    X1[q] = Y[i * ncol + j];
-    X2[q] = Y[i * ncol + n + j];
-  }
-  for (int i = t; i < n; i += nt) c.Xr[(size_t)k * n + i] = Y[i * ncol + 2 * n];
-}
-
-// Level h: fold the eliminated neighbours into the even survivor
-// k = 2 h blockIdx.x: D_k -= B_{k-h}^T X2_{k-h} + B_k X1_{k+h},
-// r_k -= B_{k-h}^T Xr_{k-h} + B_k Xr_{k+h}, and the new coupling to
-// k + 2h, B_k = -B_k X2_{k+h} (zero past the last survivor).
-__global__ void cr_stream_update_kernel(Ctx c, int h) {
-  __shared__ float Bk[NMAX * NMAX], Bl[NMAX * NMAX], X1r[NMAX * NMAX],
-      X2r[NMAX * NMAX], X2l[NMAX * NMAX], Xrr[NMAX], Xrl[NMAX];
-  if (c.st->done) return;
-  const int n = c.n, t = threadIdx.x, nt = blockDim.x;
-  const int k = 2 * h * blockIdx.x, o = k + h, ol = k - h;
-  const bool left = k > 0, more = o + h < c.K;
-  for (int q = t; q < n * n; q += nt) {
-    Bk[q] = mat(c.B, c, k)[q];
-    X1r[q] = mat(c.X1, c, o)[q];
-    X2r[q] = mat(c.X2, c, o)[q];
-    if (left) {
-      Bl[q] = mat(c.B, c, ol)[q];
-      X2l[q] = mat(c.X2, c, ol)[q];
-    }
-  }
-  for (int i = t; i < n; i += nt) {
-    Xrr[i] = c.Xr[(size_t)o * n + i];
-    if (left) Xrl[i] = c.Xr[(size_t)ol * n + i];
-  }
-  __syncthreads();
-  float* Dk = mat(c.D, c, k);
-  float* Bout = mat(c.B, c, k);
-  for (int q = t; q < n * n; q += nt) {
-    const int i = q / n, j = q % n;
-    float tl = 0.f, tr = 0.f, nb = 0.f;
-    if (left)
-      for (int m = 0; m < n; ++m) tl += Bl[m * n + i] * X2l[m * n + j];
-    for (int m = 0; m < n; ++m) tr += Bk[i * n + m] * X1r[m * n + j];
-    if (more)
-      for (int m = 0; m < n; ++m) nb += Bk[i * n + m] * X2r[m * n + j];
-    Dk[q] = Dk[q] - tl - tr;
-    Bout[q] = -nb;
-  }
-  for (int i = t; i < n; i += nt) {
-    float tl = 0.f, tr = 0.f;
-    if (left)
-      for (int m = 0; m < n; ++m) tl += Bl[m * n + i] * Xrl[m];
-    for (int m = 0; m < n; ++m) tr += Bk[i * n + m] * Xrr[m];
-    float& ri = c.r[(size_t)k * n + i];
-    ri = ri - tl - tr;
+  for (int q = threadIdx.x; q < LANES * 3 * n; q += blockDim.x) {
+    const int l = q / (3 * n), u = q / n % 3, j = q % n;
+    if (f0 + l < c.WK)
+      mat(c.B, c, k0 + l)[(3 * ab + u) * n + j] = rowB[l][u][j];
   }
 }
 
-// Back-substitution at level h, odd k = h (2 blockIdx.x + 1), one thread
-// per row: x_k = Xr_k - X1_k x_{k-h} - X2_k x_{k+h}.
-__global__ void cr_stream_backsub_kernel(Ctx c, int h) {
-  if (c.st->done) return;
-  const int n = c.n, i = threadIdx.x;
-  if (i >= n) return;
-  const int k = h * (2 * blockIdx.x + 1), e = k - h, g = k + h;
-  const float* X1 = mat(c.X1, c, k);
-  const float* X2 = mat(c.X2, c, k);
-  float s = c.Xr[(size_t)k * n + i];
-  for (int m = 0; m < n; ++m) s -= X1[i * n + m] * c.x[(size_t)e * n + m];
-  if (g < c.K)
-    for (int m = 0; m < n; ++m) s -= X2[i * n + m] * c.x[(size_t)g * n + m];
-  c.x[(size_t)k * n + i] = s;
+// --- the wide levels: a warp per supernode ---------------------------------
+
+// Warp j of the grid at level h; false past the level's K / (2h)
+// supernodes (the whole warp leaves together).
+__device__ __forceinline__ bool wide_warp(const Ctx& c, int h, int& j) {
+  j = blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);
+  return j < c.K / (2 * h);
 }
+
+// Level h: eliminate the odd survivor k = h (2j + 1).
+template <int N>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
+    cr_stream_elim_kernel(Ctx c, int h) {
+  extern __shared__ float dyn[];
+  int j;
+  if (c.st->done || !wide_warp(c, h, j)) return;
+  eliminate<N>(c, h * (2 * j + 1), h,
+               dyn + (threadIdx.x >> 5) * warp_floats(N), threadIdx.x & 31);
+}
+
+// Level h: fold the eliminated neighbours into the even survivor k = 2hj.
+template <int N>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
+    cr_stream_fold_kernel(Ctx c, int h) {
+  extern __shared__ float dyn[];
+  int j;
+  if (c.st->done || !wide_warp(c, h, j)) return;
+  fold<N>(c, 2 * h * j, h, dyn + (threadIdx.x >> 5) * warp_floats(N),
+          threadIdx.x & 31);
+}
+
+// Level h: back-substitute the odd supernode k = h (2j + 1).
+template <int N>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
+    cr_stream_backsub_kernel(Ctx c, int h) {
+  extern __shared__ float dyn[];
+  int j;
+  if (c.st->done || !wide_warp(c, h, j)) return;
+  back_substitute<N>(c, h * (2 * j + 1), h,
+                     dyn + (threadIdx.x >> 5) * warp_floats(N),
+                     threadIdx.x & 31);
+}
+
+// --- the deep levels: one cluster -------------------------------------------
+
+// Levels h0 ... K / 2, the top solve and the back-substitution down to h0,
+// a warp per active supernode (at most K_MAX of them) across the cluster.
+template <int N>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    cr_stream_cluster_kernel(Ctx c, int h0) {
+  extern __shared__ float dyn[];
+  if (c.st->done) return;  // the same for every block: no barrier is left
+  cg::cluster_group cl = cg::this_cluster();
+  Team t;
+  t.lane = threadIdx.x & 31;
+  t.gwarp = (cl.block_rank() * blockDim.x + threadIdx.x) >> 5;
+  t.nwarps = cl.num_blocks() * blockDim.x >> 5;
+  t.f0 = t.f1 = 0;
+  cr_solve<N>(c, t, dyn + (threadIdx.x >> 5) * warp_floats(N), h0);
+}
+
+// --- the candidate and the LM decision --------------------------------------
 
 // Lane f = a K + k: the step delta = x * free, the candidate pose with its
 // heading wrapped, and the per-block sums of ||delta||^2.
@@ -369,19 +380,19 @@ __global__ void cr_stream_candidate_kernel(Ctx c) {
   if (threadIdx.x == 0) c.part_sq[blockIdx.x] = sq;
 }
 
-// Accept or reject the candidate (tpu_slam/solver/cr_stream.py:709-720):
-// converged when ||delta||^2 < sq_min_delta; accepted when its cost is
-// lower and the step has not converged.
-__global__ void cr_stream_accept_kernel(Ctx c, float sq_min_delta) {
+// chi^2 of the candidate, and in the last block to finish the decision
+// (tpu_slam/solver/cr_stream.py:709-720): converged when ||delta||^2 <
+// sq_min_delta; accepted when its cost is lower and the step has not
+// converged.
+__global__ void cr_stream_cost_accept_kernel(Ctx c, float sq_min_delta) {
   __shared__ float red[33];
   if (c.st->done) return;
-  float sq = 0.f, q = 0.f;
-  for (int b = threadIdx.x; b < c.nblk; b += blockDim.x) {
-    sq += c.part_sq[b];
-    q += c.part_cost[b];
-  }
-  sq = block_sum(sq, red);
-  q = block_sum(q, red);
+  const float acc =
+      block_sum(edge_cost_sum(c, c.P[1 - c.st->cur], edge_thread(c)), red);
+  if (threadIdx.x == 0) c.part_cost[blockIdx.x] = acc;
+  if (!last_block(c)) return;
+  const float sq = ordered_sum(c.part_sq, c.nblk, red);
+  const float q = ordered_sum(c.part_cost, c.eblk, red);
   if (threadIdx.x == 0) {
     State* st = c.st;
     const bool converged = sq < sq_min_delta;
@@ -396,6 +407,7 @@ __global__ void cr_stream_accept_kernel(Ctx c, float sq_min_delta) {
     }
     st->it += 1.f;
     st->done = converged;
+    st->ticket = 0;
   }
 }
 
@@ -416,26 +428,101 @@ __global__ void cr_stream_pack_kernel(Ctx c, float* __restrict__ out) {
   for (int u = 4; u < 8; ++u) out[u * c.WK + f] = 0.f;
 }
 
+#define CHECK(call)                                  \
+  do {                                               \
+    const cudaError_t err_ = (call);                 \
+    if (err_ != cudaSuccess) return (int)err_;       \
+  } while (0)
+#define LAUNCH_CHECK() CHECK(cudaGetLastError())
+
+// The solve at n = N: set-up, `iters` LM iterations in chunks of `chunk`
+// (done read between chunks), and the packing of the result.
+template <int N>
+int run(const Ctx& c, const float* pT8, float* out, float lam0, int iters,
+        float sq_min_delta, int h0, int blocks, int warps, int smem,
+        int chunk, cudaStream_t st) {
+  const int wide_threads = 32 * WIDE_WARPS;
+  const int wide_smem = WIDE_WARPS * warp_floats(N) * (int)sizeof(float);
+  CHECK(cudaFuncSetAttribute(cr_stream_elim_kernel<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wide_smem));
+  CHECK(cudaFuncSetAttribute(cr_stream_fold_kernel<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wide_smem));
+  CHECK(cudaFuncSetAttribute(cr_stream_backsub_kernel<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wide_smem));
+  ClusterLaunch cl;
+  const int err = cluster_config(cr_stream_cluster_kernel<N>, blocks,
+                                 32 * warps, smem, st, cl);
+  if (err != 0) return err;
+  const int K = c.K;
+  CHECK(cudaMemsetAsync(c.st, 0, sizeof(State), st));
+  cr_stream_setup_kernel<<<c.eblk, 32 * c.W, 0, st>>>(c, pT8, lam0);
+  LAUNCH_CHECK();
+  for (int it0 = 0; it0 < iters; it0 += chunk) {
+    if (it0 > 0) {
+      int done = 0;
+      CHECK(cudaMemcpyAsync(&done, &c.st->done, sizeof(int),
+                            cudaMemcpyDeviceToHost, st));
+      CHECK(cudaStreamSynchronize(st));
+      if (done) break;
+    }
+    for (int it = it0; it < iters && it < it0 + chunk; ++it) {
+      cr_stream_assemble_kernel<<<c.eblk, 64 * c.W, 0, st>>>(c);
+      LAUNCH_CHECK();
+      for (int h = 1; h < h0; h <<= 1) {
+        const int grid = (K / (2 * h) + WIDE_WARPS - 1) / WIDE_WARPS;
+        cr_stream_elim_kernel<N><<<grid, wide_threads, wide_smem, st>>>(c, h);
+        LAUNCH_CHECK();
+        cr_stream_fold_kernel<N><<<grid, wide_threads, wide_smem, st>>>(c, h);
+        LAUNCH_CHECK();
+      }
+      CHECK(cudaLaunchKernelEx(&cl.cfg, cr_stream_cluster_kernel<N>, c, h0));
+      for (int h = h0 / 2; h >= 1; h >>= 1) {
+        const int grid = (K / (2 * h) + WIDE_WARPS - 1) / WIDE_WARPS;
+        cr_stream_backsub_kernel<N>
+            <<<grid, wide_threads, wide_smem, st>>>(c, h);
+        LAUNCH_CHECK();
+      }
+      cr_stream_candidate_kernel<<<c.nblk, BLOCK, 0, st>>>(c);
+      LAUNCH_CHECK();
+      cr_stream_cost_accept_kernel<<<c.eblk, 32 * c.W, 0, st>>>(c,
+                                                               sq_min_delta);
+      LAUNCH_CHECK();
+    }
+  }
+  cr_stream_pack_kernel<<<c.nblk, BLOCK, 0, st>>>(c, out);
+  LAUNCH_CHECK();
+  return 0;
+}
+
 }  // namespace
 
-#define LAUNCH_CHECK()                           \
-  do {                                           \
-    const cudaError_t err = cudaGetLastError();  \
-    if (err != cudaSuccess) return (int)err;     \
-  } while (0)
-
-// Enqueue the whole solve on `stream`: set-up and the initial cost, `iters`
-// LM iterations of 3 log2(K) + 6 launches, and the packing of the result.
+// The whole solve on `stream`. h0 (a power of two, K / h0 <= K_MAX) is
+// the first level the cluster of `blocks` blocks of `warps` warps with
+// `smem` bytes of dynamic shared memory each runs; the host reads the
+// device's done flag every `chunk` iterations and blocks until then
+// (solver/cr_stream.py::stream_schedule gives all four). Returns a
+// cudaError_t: non-zero when the arguments are out of range, the card
+// refuses the cluster, or a launch fails.
 extern "C" int cr_stream_launch(const void* pT8, const void* slots,
                                 void* out, void* scratch, float lam0, int W,
-                                int K, int iters, float sq_min_delta,
+                                int K, int iters, float sq_min_delta, int h0,
+                                int blocks, int warps, int smem, int chunk,
                                 void* stream) {
+  if (W < 1 || W > 8 || K < 128 || (K & (K - 1)) != 0 || h0 < 1 ||
+      (h0 & (h0 - 1)) != 0 || h0 >= K || K / h0 > K_MAX || blocks < 1 ||
+      blocks > MAX_CLUSTER || warps < 1 || warps > MAX_WARPS ||
+      smem < warps * warp_floats(3 * W) * (int)sizeof(float) || chunk < 1)
+    return (int)cudaErrorInvalidValue;
   Ctx c;
   c.W = W;
   c.K = K;
   c.n = 3 * W;
   c.WK = W * K;
   c.nblk = (c.WK + BLOCK - 1) / BLOCK;
+  c.eblk = (c.WK + LANES - 1) / LANES;
   const size_t WK = c.WK, nnK = (size_t)c.n * c.n * K, nK = (size_t)c.n * K;
   c.slots = (const float*)slots;
   c.free = (const float*)pT8 + 3 * WK;
@@ -443,8 +530,7 @@ extern "C" int cr_stream_launch(const void* pT8, const void* slots,
   c.st = (State*)s;
   c.P[0] = s + STATE_FLOATS;
   c.P[1] = c.P[0] + 3 * WK;
-  c.stage = c.P[1] + 3 * WK;
-  c.D = c.stage + (size_t)NBANKS * W * STAGE_ROWS * WK;
+  c.D = c.P[1] + 3 * WK;
   c.B = c.D + nnK;
   c.X1 = c.B + nnK;
   c.X2 = c.X1 + nnK;
@@ -453,39 +539,23 @@ extern "C" int cr_stream_launch(const void* pT8, const void* slots,
   c.x = c.Xr + nK;
   c.part_sq = c.x + nK;
   c.part_cost = c.part_sq + c.nblk;
-
+  const float* p = (const float*)pT8;
+  float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  cr_stream_start_kernel<<<c.nblk, BLOCK, 0, st>>>(c, (const float*)pT8, lam0);
-  LAUNCH_CHECK();
-  cr_stream_cost_kernel<<<c.nblk, BLOCK, 0, st>>>(c, 0);
-  LAUNCH_CHECK();
-  cr_stream_cost0_kernel<<<1, BLOCK, 0, st>>>(c);
-  LAUNCH_CHECK();
-  for (int it = 0; it < iters; ++it) {
-    cr_stream_assemble_kernel<<<c.nblk, BLOCK, 0, st>>>(c);
-    LAUNCH_CHECK();
-    cr_stream_gather_kernel<<<c.nblk, BLOCK, 0, st>>>(c);
-    LAUNCH_CHECK();
-    for (int h = 1; h < K; h <<= 1) {
-      cr_stream_elim_kernel<<<K / (2 * h), ELIM_THREADS, 0, st>>>(c, h);
-      LAUNCH_CHECK();
-      cr_stream_update_kernel<<<K / (2 * h), UPDATE_THREADS, 0, st>>>(c, h);
-      LAUNCH_CHECK();
-    }
-    cr_stream_elim_kernel<<<1, ELIM_THREADS, 0, st>>>(c, K);
-    LAUNCH_CHECK();
-    for (int h = K / 2; h >= 1; h >>= 1) {
-      cr_stream_backsub_kernel<<<K / (2 * h), 32, 0, st>>>(c, h);
-      LAUNCH_CHECK();
-    }
-    cr_stream_candidate_kernel<<<c.nblk, BLOCK, 0, st>>>(c);
-    LAUNCH_CHECK();
-    cr_stream_cost_kernel<<<c.nblk, BLOCK, 0, st>>>(c, 1);
-    LAUNCH_CHECK();
-    cr_stream_accept_kernel<<<1, BLOCK, 0, st>>>(c, sq_min_delta);
-    LAUNCH_CHECK();
+  switch (W) {
+#define CR_STREAM_CASE(w)                                                   \
+  case w:                                                                   \
+    return run<3 * w>(c, p, o, lam0, iters, sq_min_delta, h0, blocks, warps, \
+                      smem, chunk, st);
+    CR_STREAM_CASE(1)
+    CR_STREAM_CASE(2)
+    CR_STREAM_CASE(3)
+    CR_STREAM_CASE(4)
+    CR_STREAM_CASE(5)
+    CR_STREAM_CASE(6)
+    CR_STREAM_CASE(7)
+    CR_STREAM_CASE(8)
+#undef CR_STREAM_CASE
   }
-  cr_stream_pack_kernel<<<c.nblk, BLOCK, 0, st>>>(c, (float*)out);
-  LAUNCH_CHECK();
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }

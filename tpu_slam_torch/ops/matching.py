@@ -68,9 +68,11 @@ def _fma_squares(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 def nearest_neighbor_direct(
     src: torch.Tensor, tgt: torch.Tensor, tgt_valid: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The NN kernel's arithmetic (``ops/pallas/nn.py:31-45`` of the
+    """The NN kernel's arithmetic (``ops/pallas/nn.py:31-46`` of the
     reference): d2 = fma(dx, dx, dy·dy) + (1 − valid)·1e12 in float32 with
-    dx = sx − tx, dy = sy − ty, and the first index of the minimum.
+    dx = sx − tx, dy = sy − ty, its minimum m, and the first index where
+    d2 ≤ m, else M. As the reference's, m is NaN where any distance of the
+    row is NaN, and then the index is M (its d2 the quiet NaN).
     src (..., N, 2), tgt (..., M, 2) float32 → (idx (..., N) int64,
     d2 (..., N))."""
     dx = src[..., :, None, 0] - tgt[..., None, :, 0]
@@ -78,9 +80,12 @@ def nearest_neighbor_direct(
     big = torch.tensor(BIG, dtype=torch.float32, device=src.device)
     pen = torch.where(tgt_valid, torch.zeros_like(big), big)
     d2 = _fma_squares(dx, dy) + pen[..., None, :]
-    idx = torch.argmin(d2, dim=-1)
-    best = torch.take_along_dim(d2, idx[..., None], dim=-1)[..., 0]
-    return idx, best
+    m = torch.amin(d2, dim=-1)
+    n_tgt = d2.shape[-1]
+    cols = torch.arange(n_tgt, dtype=torch.int32, device=src.device)
+    idx = torch.where(d2 <= m[..., None], cols, n_tgt).amin(dim=-1)
+    best = torch.where(torch.isnan(m), float("nan"), m)
+    return idx.to(torch.int64), best
 
 
 def nearest_neighbor_auto(

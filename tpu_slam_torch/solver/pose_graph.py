@@ -374,7 +374,8 @@ class PoseGraphSolver:
 
     def compute_async(self, max_iterations: int | None = None):
         """Dispatch the LM solve. The kernel routes return as soon as the
-        kernel is enqueued; ``harvest()`` fetches the result."""
+        kernel is enqueued (the streamed CR-LM once its last chunk of LM
+        iterations is); ``harvest()`` fetches the result."""
         iters = max_iterations or self.cfg.max_iterations
         route = _route(self.num_nodes, self.num_edges, self.device,
                        self.cfg, self._band_spec)
