@@ -9,14 +9,26 @@ and nothing of the JAX package. Phases, each printing its own line(s):
   2. build: the seven kernels from ``tpu_slam_torch/csrc``, one nvcc per
      source, all started together;
   3. the PL-ICP kernel against its plain version on 512 scan pairs of 360
-     beams (the bench PL-ICP batch), with both times;
+     beams (the bench PL-ICP batch): its device time per launch from a
+     replayed CUDA graph of its launches (the wrapper's host µs per call
+     beside it), the launch geometry (``plicp_geometry``), the rounds
+     each pair ran (the dependent steps: max and mean) and µs a round of
+     the longest pair, the design's barriers a round, the bound counted
+     from the work the pairs' rounds need (``plicp_ops``: the target
+     tiles each source's nearest neighbour must scan at each round's
+     pose), and the plain version's time;
   4. the CR-LM kernel against its plain version on the 1,024-node bench
      pose graph, with both times and the solve's dependent steps (LM
      iterations × levels) and time per step, then all three kernels
      against their plain versions on edge cases (odd beam counts, N ≠ M,
      invalid and non-finite beams; the CR-LM's launch geometry at W = 1,
      2, 6 and 8, K = 32 (one block), 128, 256 and 512 (W 8 × K 512: the
-     largest shared-memory slices); a 3-node graph);
+     largest shared-memory slices); a 3-node graph), and the PL-ICP
+     kernel at the wrapper's limits (N 1,024 × M 4,096: shared memory
+     above 48 KB), at N = 1, on degenerate pairs (an all-invalid target,
+     a source of 2 valid beams, a straight wall whose residuals all tie)
+     and on one batch whose pairs converge in round 1 beside pairs that
+     run all 10;
   5. the main path, with the launch counters zeroed first: the offline
      Karto mission (3 laps of the corridor world, 360 beams) through
      ``offline_slam``, then the bench pose graph through
@@ -27,7 +39,8 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      batch and its first loop-selector batch;
   6. the PL-ICP kernel against its plain version on those two batches:
      chain poses and trajectory within tolerance, the same accept flags
-     and selected rows from the loop selector, with both times;
+     and selected rows from the loop selector; the kernel alone on each
+     batch timed as in 3, with its own bound, and both matchers' times;
   7. the PCG-LM kernel against its plain version on the mission's
      loop-closed graph, with both times and the PCG iterations run (the
      dependent steps) and time per step; then at the ends of its route:
@@ -40,8 +53,12 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      and each kernel's device time per launch;
  10. the Hector kernel against its plain version at full width
      (``default_config()``: 1,024² grid, 3 levels, 360 beams) on
-     bench_hector's map and scan, with both times, then on edge cases
-     (100 beams, no valid beam, a pose by the map's edge, 1 and 4 levels);
+     bench_hector's map and scan, with its device time per match from a
+     replayed CUDA graph (the wrapper's host µs beside it), its geometry
+     (``hector_geometry``), the GN steps (the dependent steps) and µs a
+     step, and the plain version's time, then on edge cases (100, 1,080
+     and 5,000 beams, no valid beam, a pose by the map's edge, 1 and 4
+     levels);
  11. the Hector main path, with the launch counters zeroed first:
      ``HectorSLAM.run`` over the 150 scans of examples/run_hector_slam.py
      at the full grid. Every matched scan must launch the Hector kernel
@@ -52,7 +69,8 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      the full ``default_config()``: the front-end coarse (21 × 16²) and
      fine (11 × 3²) passes on the 2,445² grid of a 128-scan base, and the
      loop coarse pass (21 × 81²) on eight 645² grids in one launch; with
-     both times and the bound;
+     the kernel's device time from a replayed CUDA graph (the output's
+     zeroing included), the plain version's and the bound;
  13. the same on edge cases: windows clamped at every grid edge, starts
      below 0 and past the edge, no valid beam (and a match without one,
      which takes the response expansion), 1 and 1,500 beams, 1 lane;
@@ -158,14 +176,19 @@ from tpu_slam_torch.ops import correlative as corr
 from tpu_slam_torch.ops import gridmap as gm
 from tpu_slam_torch.ops import hector as hec
 from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
-from tpu_slam_torch.ops.cuda.hector_fused import hector_match_fused
+from tpu_slam_torch.ops.cuda.hector_fused import (
+    BARRIERS_PER_STEP, hector_geometry, hector_match_fused,
+)
 from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda, nn_geometry
-from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
+from tpu_slam_torch.ops.cuda.plicp_fused import (
+    BARRIERS_PER_ROUND, TILE, launch_plicp, plicp_geometry, plicp_match_fused,
+)
 from tpu_slam_torch.ops.features import extract_corner_features
 from tpu_slam_torch.ops.icp import icp_match
 from tpu_slam_torch.ops.matching import (
     nearest_neighbor, nearest_neighbor_direct,
 )
+from tpu_slam_torch.ops.plicp import _correspondences as plicp_correspondences
 from tpu_slam_torch.ops.plicp import plicp_match
 from tpu_slam_torch.ops.undistort import undistort_scan
 from tpu_slam_torch.parallel.distributed_step import (
@@ -320,10 +343,10 @@ def phase_build() -> None:
           f"({', '.join(p.name for p in paths)})", flush=True)
 
 
-def phase_plicp(dev) -> dict:
-    """bench PL-ICP recipe: 512 consecutive pairs of an office circle."""
+def plicp_bench_batch(dev, B: int = 512):
+    """bench PL-ICP recipe: B consecutive pairs of an office circle;
+    (cfg, (src, src_valid, tgt, tgt_valid), zero guesses)."""
     cfg = default_config()
-    B = 512
     traj = sim.circle_trajectory(B + 1, radius=1.6, angular_rate=0.6)
     world = sim.office_world(seed=11, clear_path=traj)
     seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004, seed=4)
@@ -331,60 +354,139 @@ def phase_plicp(dev) -> dict:
     pts = torch.where(scans.valid[..., None], scans.points(), 0.0)
     args = (pts[1:].contiguous(), scans.valid[1:].contiguous(),
             pts[:-1].contiguous(), scans.valid[:-1].contiguous())
-    g = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    return cfg, args, torch.zeros((B, 3), dtype=torch.float32, device=dev)
 
-    def kern():
-        return plicp_match_fused(*args, cfg.plicp, init_pose=g)
 
-    def plain():
-        return plain_plicp(*args, cfg.plicp, init_pose=g)
-
-    k, p = kern(), plain()
+def plicp_pair_gaps(cfg, args, g, plain_result):
+    """The kernel against the plain version's result on the same pairs:
+    (pose gap, share of pairs with equal inliers, max |Δ inliers|, the
+    kernel's result); raises beyond the bench batch's bars."""
+    k, p = plicp_match_fused(*args, cfg.plicp, init_pose=g), plain_result
     torch.cuda.synchronize()
     dpose = float((k.pose - p.pose).abs().max())
     dinl = (k.num_inliers - p.num_inliers).abs()
     eq = float((dinl == 0).float().mean())
-    ok = (torch.isfinite(k.pose).all() and dpose <= PLICP_POSE_TOL
-          and eq >= PLICP_INLIER_EQ_FRAC and int(dinl.max()) <= 1)
-    ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
-    rounds = plicp_rounds(args, cfg.plicp, g)
-    N = M = pts.shape[1]
+    if not (bool(torch.isfinite(k.pose).all()) and dpose <= PLICP_POSE_TOL
+            and eq >= PLICP_INLIER_EQ_FRAC and int(dinl.max()) <= 1):
+        raise AssertionError(f"PL-ICP kernel disagrees with its plain version "
+                             f"(pose {dpose:.3e}, inliers equal {eq:.4f})")
+    return dpose, eq, int(dinl.max()), k
+
+
+def phase_plicp(dev) -> dict:
+    """The bench PL-ICP batch: 512 pairs of 360 beams."""
+    cfg, args, g = plicp_bench_batch(dev)
+
+    def plain():
+        return plain_plicp(*args, cfg.plicp, init_pose=g)
+
+    p = plain()
+    dpose, eq, dinl, k = plicp_pair_gaps(cfg, args, g, p)
+    out, timing = plicp_timing(args, g, cfg, 50)
+    out["plain_ms"] = cuda_ms(plain, 3)
+    print(f"plicp: B={g.shape[0]} N=360 pose max|d|={dpose:.3e} inliers "
+          f"equal {eq:.4f} max|d|={dinl} converged "
+          f"{int(k.converged.sum())}/{int(p.converged.sum())}; {timing}; "
+          f"plain {out['plain_ms']:.3f} ms", flush=True)
+    return {"max_abs_err": dpose, **out}
+
+
+def plicp_timing(pairs, g, cfg, reps: int) -> tuple[dict, str]:
+    """The PL-ICP kernel on ``pairs`` (src, src_valid, tgt, tgt_valid):
+    its device ms a launch (``graph_ms`` of the bare launch, the wrapper's
+    host µs beside it), the launch geometry, the rounds each pair ran
+    (``plicp_rounds``: the dependent steps), µs a round of the longest
+    pair, the design's barriers a round, and the bound counted from the
+    work the pairs' rounds need (``plicp_ops``). Returns (ms and bound,
+    the printed text)."""
+    B, N, _ = pairs[0].shape
+    M = pairs[2].shape[1]
+    ms, host_us, how = graph_ms(lambda: launch_plicp(*pairs, cfg.plicp, g),
+                                reps)
+    rounds, starts = plicp_rounds(pairs, cfg.plicp, g)
+    shape = plicp_geometry(B, N, M, torch.cuda.get_device_properties(
+        g.device).multi_processor_count)
     work = bound(B * (9 * N + 9 * M + 12) + B * (12 + 16 + 36),
-                 int(rounds.sum()) * plicp_round_flops(N, M))
-    print(f"plicp: B={B} N=360 pose max|d|={dpose:.3e} inliers equal "
-          f"{eq:.4f} max|d|={int(dinl.max())} converged {int(k.converged.sum())}"
-          f"/{int(p.converged.sum())} rounds {int(rounds.sum())} kernel "
-          f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {work['bound_ms']:.5f} "
-          f"ms ({work['bound_by']})", flush=True)
-    if not ok:
-        raise AssertionError("PL-ICP kernel disagrees with its plain version")
-    return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work}
+                 plicp_ops(pairs, rounds, starts))
+    rmax = int(rounds.max())
+    text = (f"kernel {ms:.4f} ms ({how}; the wrapper's host {host_us:.1f} us "
+            f"a call), {shape.threads} threads x {shape.sources} sources "
+            f"a thread, {shape.smem} B shared; rounds a pair max {rmax} mean "
+            f"{float(rounds.float().mean()):.2f} (all {int(rounds.sum())}), "
+            f"{ms * 1e3 / rmax:.2f} us a round of the longest pair, "
+            f"{BARRIERS_PER_ROUND} barriers a round (design); bound "
+            f"{work['bound_ms']:.5f} ms ({work['bound_by']})")
+    return {"ms": ms, **work}, text
 
 
-def plicp_rounds(args, pcfg, g) -> torch.Tensor:
-    """Rounds each pair runs before it converges: the plain version stops
-    no pair early, but after k rounds it reports which pairs converged
-    within k, so the first such k is that pair's count."""
+def plicp_rounds(args, pcfg, g) -> tuple[torch.Tensor, list]:
+    """Rounds each pair runs before it converges, and the pose each round
+    starts from: the plain version stops no pair early, but after k
+    rounds it reports which pairs converged within k, so the first such k
+    is that pair's count, and its pose after k rounds is where round k + 1
+    starts. Returns (rounds (B,), one (B, 3) start pose a round)."""
     rounds = torch.full((g.shape[0],), pcfg.max_iterations,
                         dtype=torch.int64, device=g.device)
     seen = torch.zeros_like(rounds, dtype=torch.bool)
+    starts = [g]
     for k in range(1, pcfg.max_iterations + 1):
-        conv = plain_plicp(*args, dataclasses.replace(pcfg, max_iterations=k),
-                           init_pose=g).converged
-        rounds = torch.where(conv & ~seen, k, rounds)
-        seen |= conv
-    return rounds
+        res = plain_plicp(*args, dataclasses.replace(pcfg, max_iterations=k),
+                          init_pose=g)
+        rounds = torch.where(res.converged & ~seen, k, rounds)
+        seen |= res.converged
+        starts.append(res.pose)
+    return rounds, starts[:-1]
 
 
-def plicp_round_flops(N: int, M: int) -> float:
-    """One PL-ICP round of one pair: 6 operations per source-target
-    distance (two differences, two squares, a sum, a compare), the bitonic
-    sort of the N residuals for the trimming quantiles (one compare per
-    pair per stage), and ~120 per source beam for the second point, the
-    residual and the sums of the two GN steps."""
-    p2 = 1 << max(N - 1, 1).bit_length()
-    lg = p2.bit_length() - 1
-    return 6 * N * M + p2 // 2 * lg * (lg + 1) // 2 + 120 * N
+def plicp_ops(pairs, rounds, starts, chunk: int = 256) -> float:
+    """The operations the pairs' rounds need on these inputs, each round
+    at the pose it starts from: the nearest neighbour of each valid source
+    needs 6 operations (two differences, two squares, a sum, a compare)
+    for each target of each tile of ``TILE`` targets whose bounding box
+    lies no farther than the source's nearest valid target (a tile that
+    holds an invalid target bounds at 1e12, as in the kernel), and ~10
+    for each tile's box test; the exact trimming quantiles a linear radix
+    select, 2 per source (a histogram count, and a compare among the two
+    bins' members); the second point, the residual and the sums of the
+    two GN steps ~120 per source."""
+    src, sv, tgt, tv = pairs
+    B, N, _ = src.shape
+    M = tgt.shape[1]
+    nb = -(-M // TILE)
+    pad = nb * TILE - M
+    inf = float("inf")
+
+    def tiles(x, fill):  # (B, M) -> (B, nb, TILE), padded with ``fill``
+        return torch.nn.functional.pad(x, (0, pad), value=fill).view(
+            B, nb, TILE)
+
+    tx, ty = tgt[..., 0], tgt[..., 1]
+    x0 = tiles(torch.where(tv, tx, inf), inf).amin(-1)
+    y0 = tiles(torch.where(tv, ty, inf), inf).amin(-1)
+    x1 = tiles(torch.where(tv, tx, -inf), -inf).amax(-1)
+    y1 = tiles(torch.where(tv, ty, -inf), -inf).amax(-1)
+    invalid = tiles((~tv).float(), 0.0).amax(-1) > 0
+    size = torch.full((nb,), float(TILE), device=src.device)
+    size[-1] = M - (nb - 1) * TILE
+    nn_ops = 0.0
+    for r, pose in enumerate(starts):
+        live = rounds > r
+        for a in range(0, B, chunk):
+            b = slice(a, a + chunk)
+            w = geo.apply(pose[b], src[b])  # (b, N, 2)
+            d2 = ((w[:, :, None, :] - tgt[b][:, None, :, :]) ** 2).sum(-1)
+            best = torch.where(tv[b][:, None, :], d2, 1e12).amin(-1)
+            wx, wy = w[..., 0:1], w[..., 1:2]
+            gx = torch.clamp(torch.maximum(x0[b][:, None] - wx,
+                                           wx - x1[b][:, None]), min=0)
+            gy = torch.clamp(torch.maximum(y0[b][:, None] - wy,
+                                           wy - y1[b][:, None]), min=0)
+            lb = gx * gx + gy * gy
+            lb = torch.where(invalid[b][:, None], lb.clamp(max=1e12), lb)
+            scanned = ((lb <= best[..., None]) * size).sum(-1)  # (b, N)
+            use = sv[b] & live[b][:, None]
+            nn_ops += float((6 * scanned + 10 * nb)[use].sum())
+    return nn_ops + float(rounds.sum()) * 122 * N
 
 
 def lm_edge_flops(E: int) -> float:
@@ -596,6 +698,114 @@ def phase_edge_cases(dev) -> None:
         raise AssertionError("PCG-LM kernel edge case disagrees")
 
 
+def plicp_edge(label, cfg, src, sv, tgt, tv, g):
+    """The PL-ICP kernel against its plain version on one edge batch, at
+    phase_edge_cases' bars; returns (kernel, plain) results."""
+    k = plicp_match_fused(src, sv, tgt, tv, cfg.plicp, init_pose=g)
+    p = plain_plicp(src, sv, tgt, tv, cfg.plicp, init_pose=g)
+    torch.cuda.synchronize()
+    B, N, _ = src.shape
+    M = tgt.shape[1]
+    shape = plicp_geometry(B, N, M, torch.cuda.get_device_properties(
+        src.device).multi_processor_count)
+    dpose = float(pose_gap(k.pose, p.pose).max())
+    dinl = int((k.num_inliers - p.num_inliers).abs().max())
+    print(f"{label}: B={B} N={N} M={M} geometry {shape.threads} threads x "
+          f"{shape.sources} sources, {shape.smem} B shared; pose max|d|="
+          f"{dpose:.3e} inliers kernel {k.num_inliers.tolist()[:8]} max|d|="
+          f"{dinl} converged {int(k.converged.sum())}/"
+          f"{int(p.converged.sum())}", flush=True)
+    if not (dpose <= PLICP_POSE_TOL and dinl <= 1
+            and bool(torch.isfinite(k.pose).all())
+            and torch.equal(k.converged, p.converged)):
+        raise AssertionError(f"{label}: the PL-ICP kernel disagrees with its "
+                             "plain version")
+    return k, p
+
+
+def office_pairs(dev, B: int, n_src: int, n_tgt: int, rate: float = 0.5,
+                 seed: int = 2):
+    """B consecutive pairs of an office circle: sources of ``n_src`` beams
+    from poses 1..B, targets of ``n_tgt`` beams from poses 0..B-1, each
+    scan at its own beam count over the full turn."""
+    cfg = default_config()
+    traj = sim.circle_trajectory(B + 1, radius=1.6, angular_rate=rate)
+    world = sim.office_world(seed=seed, clear_path=traj)
+    out = []
+    for nb in (n_src, n_tgt):
+        scfg = dataclasses.replace(cfg.scan, num_beams=nb,
+                                   angle_increment=2 * np.pi / nb)
+        sc = make_scan(sim.simulate_sequence(world, traj, scfg,
+                                             noise_std=0.004,
+                                             seed=nb).ranges, scfg,
+                       device=dev)
+        out.append((torch.where(sc.valid[..., None], sc.points(), 0.0),
+                    sc.valid))
+    (sp, sv), (tp, tv) = out
+    return (sp[1:].contiguous(), sv[1:].contiguous(), tp[:-1].contiguous(),
+            tv[:-1].contiguous())
+
+
+def phase_plicp_edges(dev) -> None:
+    """The PL-ICP kernel off the main path's shapes: the wrapper's limits
+    (N 1,024 x M 4,096: shared memory above 48 KB), N = 1, a batch of
+    degenerate pairs (an all-invalid target, a source of 2 valid beams,
+    a straight wall whose residuals all tie, an ordinary pair), and one
+    batch whose pairs converge in round 1 beside pairs that run all 10."""
+    cfg = default_config()
+    f32 = dict(dtype=torch.float32, device=dev)
+    pairs = office_pairs(dev, 2, 1024, 4096)
+    plicp_edge("edge plicp N=1,024 M=4,096", cfg, *pairs,
+               torch.zeros((2, 3), **f32))
+    src, sv, tgt, tv = office_pairs(dev, 4, 360, 360)
+    first = sv.float().argmax(-1)  # each source's first valid beam
+    rows = torch.arange(4, device=dev)
+    plicp_edge("edge plicp N=1", cfg, src[rows, first][:, None].contiguous(),
+               sv[rows, first][:, None].contiguous(), tgt, tv,
+               torch.zeros((4, 3), **f32))
+    # degenerate pairs: 0 an all-invalid target, 1 a source of 2 valid
+    # beams, 2 a straight wall (y = 1) seen from 0.02 m off, its x values
+    # each twice, so that every residual is the same |err|, 3 ordinary
+    src, sv, tgt, tv = (x.clone() for x in (src, sv, tgt, tv))
+    tv[0] = False
+    sv[1] = False
+    sv[1, first[1]] = sv[1, first[1] + 5] = True
+    wx = torch.linspace(-4.5, 4.5, 360, **f32)
+    tgt[2] = torch.stack([wx, torch.ones_like(wx)], -1)
+    tv[2] = True
+    src[2] = torch.stack([wx[::2].repeat_interleave(2),
+                          torch.full_like(wx, 1.02)], -1)
+    sv[2] = True
+    g = torch.zeros((4, 3), **f32)
+    _s, _q1, _n, resid, gate = plicp_correspondences(
+        g, src, sv, tgt, tv, cfg.plicp, True, nearest_neighbor)
+    ties = int(gate[2].sum()) - int(torch.unique(resid[2][gate[2]].abs())
+                                    .numel())
+    k, _p = plicp_edge("edge plicp degenerate pairs (no valid target, 2 "
+                       "valid sources, a tied wall, ordinary)", cfg, src,
+                       sv, tgt, tv, g)
+    print(f"edge plicp tied wall: {int(gate[2].sum())} gated sources, "
+          f"{ties} of them tie an earlier |err| in round 1; wall pair "
+          f"pose {k.pose[2].tolist()}", flush=True)
+    if not (int(k.num_inliers[0]) == 0 and int(k.num_inliers[1]) <= 2
+            and ties >= 300 and bool((k.pose[:2] == 0).all())):
+        raise AssertionError("edge plicp degenerate pairs: wrong inliers, "
+                             "or a pair without 3 inliers moved")
+    # 4 pairs of identical scans (converge in round 1), 12 started 0.2 m
+    # and 0.1 rad off on a fast turn (run up to all 10 rounds)
+    src, sv, tgt, tv = office_pairs(dev, 16, 360, 360, rate=2.5, seed=11)
+    src[:4], sv[:4] = tgt[:4], tv[:4]
+    g = torch.zeros((16, 3), **f32)
+    g[4:] = torch.tensor([0.2, 0.1, -0.1], **f32)
+    rounds, _starts = plicp_rounds((src, sv, tgt, tv), cfg.plicp, g)
+    print(f"edge plicp mixed convergence: rounds a pair {rounds.tolist()}",
+          flush=True)
+    if not (int(rounds.min()) == 1
+            and int(rounds.max()) == cfg.plicp.max_iterations):
+        raise AssertionError("the mixed batch does not span 1 to all rounds")
+    plicp_edge("edge plicp mixed convergence", cfg, src, sv, tgt, tv, g)
+
+
 def bench_mission(dev):
     """bench_karto's mission: 3 laps of the corridor loop, 360 beams."""
     cfg = default_config()
@@ -713,66 +923,102 @@ def f64_witness(cfg, kpose, ppose, sp, sv, tp, tv, g) -> str:
             f"max|plain-f64|={float(gp.max()):.3e}")
 
 
-def phase_mission_batches(cfg, T: int, batches) -> None:
-    """The PL-ICP kernel against its plain version on the mission's own
-    batches, as the counted run recorded them: the chain batch through
-    ``make_chain_matcher`` and the first loop round's multi-start batch
-    through ``make_loop_selector``. Pairs that split are solved again in
-    float64 as a witness (``f64_witness``)."""
+def mission_pairs(store, storev, dirs, si, ti):
+    """A recorded matcher call's pairs, as the matcher gathers them:
+    (src, src_valid, tgt, tgt_valid)."""
+    return (_gather_scan(store, si, dirs), storev[si].contiguous(),
+            _gather_scan(store, ti, dirs), storev[ti].contiguous())
+
+
+def plain_matchers(cfg, S: int):
+    """The chain matcher and loop selector over the plain version."""
 
     def plain_match(sp, sv, tp, tv, g):
         return plain_plicp(sp, sv, tp, tv, cfg.plicp, init_pose=g)
 
-    def gathered(store, storev, dirs, si, ti):
-        return (_gather_scan(store, si, dirs), storev[si].contiguous(),
-                _gather_scan(store, ti, dirs), storev[ti].contiguous())
+    return _chain_matcher(plain_match), _loop_selector(plain_match, S)
 
-    # chain: per-pair rows and the integrated trajectory
-    args = batches["chain"]
-    store, storev, dirs, si, ti, g, _pose0 = args
-    Bp = si.shape[0]
-    kern_c = make_chain_matcher(cfg)
-    plain_c = _chain_matcher(plain_match)
-    k, p = kern_c(*args), plain_c(*args)
+
+def chain_gaps(cfg, T: int, args, plain_rows):
+    """The kernel's chain matcher on the recorded chain call against the
+    plain version's rows: (rel pose gap, trajectory gap, |Δ inliers| per
+    pair, the kernel's rows); raises beyond the chain's bars."""
+    Bp = args[3].shape[0]
+    k, p = make_chain_matcher(cfg)(*args), plain_rows
     torch.cuda.synchronize()
     n = T - 1
     drel = float(pose_gap(k[:n, :3], p[:n, :3]).max())
     dtraj = float(pose_gap(k[Bp:Bp + T, :3], p[Bp:Bp + T, :3]).max())
     dinl = (k[:n, 4] - p[:n, 4]).abs()
-    witness = f64_witness(cfg, k[:n, :3], p[:n, :3],
-                          *gathered(store, storev, dirs, si[:n], ti[:n]),
-                          g[:n])
-    ms, plain_ms = cuda_ms(lambda: kern_c(*args), 5), cuda_ms(
-        lambda: plain_c(*args), 2)
-    print(
-        f"mission chain batch: B={Bp} pairs={n} rel max|d|={drel:.3e} "
-        f"trajectory max|d|={dtraj:.3e} inliers equal "
-        f"{float((dinl == 0).float().mean()):.4f} max|d|={int(dinl.max())}; "
-        f"{witness}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms", flush=True)
     if not (drel <= PLICP_POSE_TOL and dtraj <= CHAIN_TRAJ_TOL
             and int(dinl.max()) <= 1):
-        raise AssertionError("chain batch: kernel and plain version disagree")
+        raise AssertionError(f"chain batch: kernel and plain version "
+                             f"disagree (rel {drel:.3e}, trajectory "
+                             f"{dtraj:.3e}, inliers {int(dinl.max())})")
+    return drel, dtraj, dinl, k
 
-    # first loop round: the selector's rows, then the pairs beneath them
-    S = batches["seeds"]
-    args = batches["loop"]
-    store, storev, dirs, si, ti, g, rel_pred, _gates = args
-    Cp = rel_pred.shape[0]
-    kern_l = make_loop_selector(cfg, S)
-    plain_l = _loop_selector(plain_match, S)
-    k, p = kern_l(*args), plain_l(*args)
-    pairs = gathered(store, storev, dirs, si, ti)
-    kp = plicp_match_fused(*pairs, cfg.plicp, init_pose=g)
-    pp = plain_plicp(*pairs, cfg.plicp, init_pose=g)
+
+def loop_gaps(cfg, S: int, args, plain_rows):
+    """The kernel's loop selector on the recorded loop call against the
+    plain version's rows: (accepted by the kernel, by the plain version,
+    selected rows' pose gap, their error gap); raises unless the accept
+    flags are the same and the selected rows within PLICP_POSE_TOL."""
+    k, p = make_loop_selector(cfg, S)(*args), plain_rows
     torch.cuda.synchronize()
     acc_k, acc_p = k[:, 15] > 0.5, p[:, 15] > 0.5
     both = acc_k & acc_p
     dsel = float(pose_gap(k[both, :3], p[both, :3]).max()) if both.any() \
         else 0.0
     derr = float((k[both, 3] - p[both, 3]).abs().max()) if both.any() else 0.0
+    if not (torch.equal(acc_k, acc_p) and dsel <= PLICP_POSE_TOL):
+        raise AssertionError(f"loop batch: kernel and plain version select "
+                             f"differently (selected rows {dsel:.3e})")
+    return acc_k, acc_p, dsel, derr
+
+
+def phase_mission_batches(cfg, T: int, batches) -> None:
+    """The PL-ICP kernel against its plain version on the mission's own
+    batches, as the counted run recorded them: the chain batch through
+    ``make_chain_matcher`` and the first loop round's multi-start batch
+    through ``make_loop_selector``. Pairs that split are solved again in
+    float64 as a witness (``f64_witness``). Each batch's kernel is timed
+    alone (``plicp_timing``), with its bound from the work its rounds need."""
+    S = batches["seeds"]
+    plain_c, plain_l = plain_matchers(cfg, S)
+
+    # chain: per-pair rows and the integrated trajectory
+    args = batches["chain"]
+    store, storev, dirs, si, ti, g, _pose0 = args
+    Bp = si.shape[0]
+    n = T - 1
+    p = plain_c(*args)
+    drel, dtraj, dinl, k = chain_gaps(cfg, T, args, p)
+    witness = f64_witness(cfg, k[:n, :3], p[:n, :3],
+                          *mission_pairs(store, storev, dirs, si[:n], ti[:n]),
+                          g[:n])
+    kern_c = make_chain_matcher(cfg)
+    ms, plain_ms = cuda_ms(lambda: kern_c(*args), 5), cuda_ms(
+        lambda: plain_c(*args), 2)
+    _o, timing = plicp_timing(mission_pairs(store, storev, dirs, si, ti), g,
+                              cfg, 20)
+    print(
+        f"mission chain batch: B={Bp} pairs={n} rel max|d|={drel:.3e} "
+        f"trajectory max|d|={dtraj:.3e} inliers equal "
+        f"{float((dinl == 0).float().mean()):.4f} max|d|={int(dinl.max())}; "
+        f"{witness}; {timing}; matcher {ms:.3f} ms (events) plain "
+        f"{plain_ms:.3f} ms", flush=True)
+
+    # first loop round: the selector's rows, then the pairs beneath them
+    args = batches["loop"]
+    store, storev, dirs, si, ti, g, rel_pred, _gates = args
+    Cp = rel_pred.shape[0]
+    acc_k, acc_p, dsel, derr = loop_gaps(cfg, S, args, plain_l(*args))
+    pairs = mission_pairs(store, storev, dirs, si, ti)
+    kp = plicp_match_fused(*pairs, cfg.plicp, init_pose=g)
+    pp = plain_plicp(*pairs, cfg.plicp, init_pose=g)
     witness = f64_witness(cfg, kp.pose, pp.pose, *pairs, g)
-    ms = cuda_ms(lambda: plicp_match_fused(*pairs, cfg.plicp, init_pose=g), 5)
     plain_ms = cuda_ms(lambda: plain_plicp(*pairs, cfg.plicp, init_pose=g), 2)
+    _o, timing = plicp_timing(pairs, g, cfg, 10)
     inl_eq = float((kp.num_inliers == pp.num_inliers).float().mean())
     print(
         f"mission loop batch (round 0): Cp={Cp} S={S} pairs={Cp * S} accepted "
@@ -780,11 +1026,8 @@ def phase_mission_batches(cfg, T: int, batches) -> None:
         f"{bool(torch.equal(acc_k, acc_p))} selected rows pose max|d|="
         f"{dsel:.3e} err max|d|={derr:.3e}; pairs: pose max|d|="
         f"{float(pose_gap(kp.pose, pp.pose).max()):.3e} inliers equal "
-        f"{inl_eq:.4f}; {witness}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms",
+        f"{inl_eq:.4f}; {witness}; {timing}; plain {plain_ms:.3f} ms",
         flush=True)
-    if not (torch.equal(acc_k, acc_p) and dsel <= PLICP_POSE_TOL):
-        raise AssertionError("loop batch: kernel and plain version select "
-                             "differently")
 
 
 def pcg_compare(label: str, dev, args, kw, reps: int = 3) -> dict:
@@ -1065,15 +1308,23 @@ def phase_hector(dev) -> dict:
     dpose, (kp, _kH), _p, kern, plain = hector_compare(
         slam, probs, guess, pts, valid, "hector")
     err = np.abs(kp.cpu().numpy()[:2] - truth[:2]).max()
-    ms, plain_ms = cuda_ms(kern, 200), cuda_ms(plain, 20)
+    ms, host_us, how = graph_ms(kern, 200)
+    plain_ms = cuda_ms(plain, 20)
     nbytes, flops = hector_work(probs, slam.grid_cfgs, slam.cfg.hector,
                                 guess, pts, valid)
     work = bound(nbytes, flops)
+    hc = slam.cfg.hector
+    steps = hc.iterations_fine + 1 + (len(probs) - 1) * (
+        hc.iterations_coarse + 1)
+    split = hector_geometry(pts.shape[0])
     print(f"hector: grid {slam.grid_cfgs[0].size_x}^2 x "
           f"{len(slam.grid_cfgs)} levels, match |xy - truth| {err:.4f} m "
-          f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms; work {nbytes} bytes "
-          f"{flops:.0f} FLOPs, bound {work['bound_ms']:.6f} ms "
-          f"({work['bound_by']})", flush=True)
+          f"kernel {ms:.4f} ms ({how}; the wrapper's host {host_us:.1f} us "
+          f"a call), {split.threads} threads x {split.beams} beams a thread, "
+          f"{steps} GN steps (the dependent steps), {ms * 1e3 / steps:.3f} "
+          f"us a step, {BARRIERS_PER_STEP} barrier a step (design); plain "
+          f"{plain_ms:.3f} ms; work {nbytes} bytes {flops:.0f} FLOPs, bound "
+          f"{work['bound_ms']:.6f} ms ({work['bound_by']})", flush=True)
     if err > 0.03:
         raise AssertionError("the Hector match missed the true pose")
     return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work}
@@ -1081,11 +1332,17 @@ def phase_hector(dev) -> dict:
 
 def phase_hector_edges(dev) -> None:
     """The Hector kernel against its plain version off the main path's
-    shapes: 100 beams; no valid beam (the pose comes back, H = 0); a
+    shapes: 100, 1,080 and 5,000 beams (more than one pass of the largest
+    instance holds: two chunks); no valid beam (the pose comes back, H = 0); a
     trajectory 0.9 m from the map's east edge (the map shifted so half
     the beams fall off it); pyramids of 1 and 4 levels."""
-    slam, probs, guess, pts, valid, _t = hector_case(dev, beams=100)
-    hector_compare(slam, probs, guess, pts, valid, "edge hector 100 beams")
+    # 1,080: several beams a thread; 5,000: in chunks
+    for beams in (100, 1080, 5000):
+        slam, probs, guess, pts, valid, _t = hector_case(dev, beams=beams)
+        split = hector_geometry(beams)
+        hector_compare(slam, probs, guess, pts, valid,
+                       f"edge hector {beams} beams ({split.threads} threads "
+                       f"x {split.beams} beams x {split.chunks} chunks)")
     slam, probs, guess, pts, valid, _t = hector_case(dev)
     none = torch.zeros_like(valid)
     _d, (kp, kH), _p, _k, _pl = hector_compare(slam, probs, guess, pts, none,
@@ -1302,9 +1559,10 @@ def response_case(matcher, idx, pts, valid, poses, query: int, offset,
 
 
 def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
-                     reps=(20, 2)):
+                     reps=(100, 2)):
     """The kernel against its plain version: int32 equality, both times
-    (CUDA events; none when ``reps`` is 0) and the bound of this work."""
+    (the kernel's from ``graph_ms``, the plain version's from CUDA events;
+    none when ``reps`` is 0) and the bound of this work."""
 
     def kern():
         return responses_sliced(grid, ys, xs, valid, nx, ny, stride)
@@ -1322,10 +1580,13 @@ def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
     # and valid beam
     work = bound(grid.numel() + 8 * ys.numel() + N + 4 * k.numel(),
                  float(C * A * nx * ny * nv), PEAK_INT32_OPS)
-    ms = cuda_ms(kern, reps[0]) if reps[0] else None
-    plain_ms = cuda_ms(plain, reps[1]) if reps[1] else None
-    times = (f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms" if reps[0]
-             else "not timed")
+    ms, plain_ms, times = None, None, "not timed"
+    if reps[0]:
+        ms, host_us, how = graph_ms(kern, reps[0])
+        plain_ms = cuda_ms(plain, reps[1])
+        times = (f"kernel {ms:.4f} ms ({how}, with the output's zeroing; "
+                 f"the wrapper's host {host_us:.1f} us a call) plain "
+                 f"{plain_ms:.3f} ms")
     print(f"{label}: lanes={C} headings={A} lattice={ny}x{nx} stride="
           f"{stride} beams={N} valid={nv} grid {grid.shape[1]}x"
           f"{grid.shape[2]} int32 equal {err == 0} max|d|={err} sum "
@@ -2305,6 +2566,7 @@ def main() -> None:
     plicp = phase_plicp(dev)
     cr = phase_cr(dev)
     phase_edge_cases(dev)
+    phase_plicp_edges(dev)
     clock("PL-ICP, CR-LM and edge cases")
     stream = phase_cr_stream(dev)
     phase_cr_both(dev)

@@ -1,4 +1,4 @@
-"""Shape sweeps on the card: the measurements behind two kernels' chosen
+"""Shape sweeps on the card: the measurements behind four kernels' chosen
 shapes.
 
 - The NN kernel (``tpu_slam_torch/csrc/nn.cu``) at every G = 1 … 32 lanes
@@ -14,20 +14,39 @@ shapes.
   (CUDA events, median of 3) and, at chunk 4, the device time by stage
   under ``torch.profiler``; the poses against those of the chosen shape.
 
+- The PL-ICP kernel (``tpu_slam_torch/csrc/plicp_fused.cu``) at 64, 96,
+  128, 192 and 384 threads a pair (6, 4, 3, 2 and 1 sources a thread at
+  N = 360), on the bench batch (512 pairs), its first 64 pairs, and the
+  mission's chain and first loop batches as its counted run records
+  them: each setting
+  held to the phase's bars against the plain version
+  (``chip_smoke.plicp_pair_gaps``, ``chain_gaps``, ``loop_gaps``; a
+  setting outside them is printed so, and the chosen one must hold) and
+  timed as a replayed CUDA graph of its launches; the choice is marked.
+- The Hector kernel (``tpu_slam_torch/csrc/hector_fused.cu``) at 2, 4, 8
+  and 12 warps a match on bench_hector's case, each held to
+  ``chip_smoke.hector_compare``'s bars and timed the same way;
+  ``hector_geometry``'s choice is marked.
+
 Run from the root of the repository: ``python3 chip_sweep.py`` (one CUDA
-card; builds the two kernels at first use). Prints one line per setting.
+card; builds the kernels at first use). Prints one line per setting;
+``python3 chip_sweep.py plicp hector`` runs only the sweeps named.
 """
 
 from __future__ import annotations
 
 import statistics
+import sys
 
 import torch
 
 import chip_smoke as cs
 from tpu_slam_torch.config import SolverConfig
 from tpu_slam_torch.convert import solver_from_numpy
+from tpu_slam_torch.models.offline import offline_slam
+from tpu_slam_torch.ops.cuda import hector_fused as chec
 from tpu_slam_torch.ops.cuda import nn as cnn
+from tpu_slam_torch.ops.cuda import plicp_fused as cplicp
 from tpu_slam_torch.ops.matching import nearest_neighbor_direct
 from tpu_slam_torch.solver import cr_stream as crs
 from tpu_slam_torch.solver.pose_graph import _sq_min_delta
@@ -106,11 +125,95 @@ def sweep_cr_stream(dev) -> None:
         crs.CLUSTER_ACTIVE, crs.CHUNK = chosen
 
 
+PLICP_THREADS = (64, 96, 128, 192, 384)
+HECTOR_WARPS = (2, 4, 8, 12)
+
+
+def sweep_plicp(dev) -> None:
+    cfg, args, g = cs.plicp_bench_batch(dev)
+    small = tuple(x[:64].contiguous() for x in args)
+    mcfg, scans, odom, gt = cs.bench_mission(dev)
+    with cs.recording_batches() as rec:
+        offline_slam(scans, mcfg, odom=odom)
+    S = rec["seeds"]
+    plain_c, plain_l = cs.plain_matchers(mcfg, S)
+    chain_rows, loop_rows = plain_c(*rec["chain"]), plain_l(*rec["loop"])
+    plain_big = cs.plain_plicp(*args, cfg.plicp, init_pose=g)
+    plain_small = cs.plain_plicp(*small, cfg.plicp, init_pose=g[:64])
+    cases = (
+        ("512 pairs", args, g, cfg, 50,
+         lambda: cs.plicp_pair_gaps(cfg, args, g, plain_big)[0]),
+        ("64 pairs", small, g[:64], cfg, 50,
+         lambda: cs.plicp_pair_gaps(cfg, small, g[:64], plain_small)[0]),
+        ("mission chain", cs.mission_pairs(*rec["chain"][:5]),
+         rec["chain"][5], mcfg, 20,
+         lambda: cs.chain_gaps(mcfg, len(gt), rec["chain"], chain_rows)[0]),
+        ("mission loop", cs.mission_pairs(*rec["loop"][:5]), rec["loop"][5],
+         mcfg, 10,
+         lambda: cs.loop_gaps(mcfg, S, rec["loop"], loop_rows)[2]),
+    )
+    chosen = cplicp.plicp_geometry
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    try:
+        for label, pairs, gs, c, reps, gap in cases:
+            B, N, _ = pairs[0].shape
+            M = pairs[2].shape[1]
+            pick = chosen(B, N, M, sms)
+            shapes = [cplicp.PLICPGeometry(t, -(-N // t),
+                                           cplicp.smem_bytes(
+                                               N, M, t, -(-N // t)))
+                      for t in PLICP_THREADS]
+            for shape in shapes:
+                cplicp.plicp_geometry = lambda *_a, shape=shape: shape
+                try:
+                    held = f"within the phase's bars (pose {gap():.2e})"
+                except AssertionError as err:
+                    if shape == pick:
+                        raise
+                    held = f"OUTSIDE the phase's bars ({err})"
+                ms, _host_us, how = cs.graph_ms(
+                    lambda: cplicp.launch_plicp(*pairs, c.plicp, gs), reps)
+                mark = " (chosen)" if shape == pick else ""
+                print(f"sweep plicp {label} ({B}x{N}x{M}) {shape.threads} "
+                      f"threads x {shape.sources} sources{mark}: {ms:.4f} "
+                      f"ms a launch ({how}), {held}", flush=True)
+    finally:
+        cplicp.plicp_geometry = chosen
+
+
+def sweep_hector(dev) -> None:
+    slam, probs, guess, pts, valid, _t = cs.hector_case(dev)
+    N = pts.shape[0]
+    hc = slam.cfg.hector
+    steps = hc.iterations_fine + 1 + (len(probs) - 1) * (
+        hc.iterations_coarse + 1)
+    chosen = chec.hector_geometry
+    pick = chosen(N)
+    try:
+        for warps in HECTOR_WARPS:
+            split = chec.HectorGeometry(32 * warps, -(-N // (32 * warps)))
+            chec.hector_geometry = lambda _n, split=split: split
+            dpose, _k, _p, kern, _pl = cs.hector_compare(
+                slam, probs, guess, pts, valid,
+                f"sweep hector {warps} warps x {split.beams} beams")
+            ms, host_us, how = cs.graph_ms(kern, 200)
+            print(f"sweep hector {N} beams {warps} warps x {split.beams} "
+                  f"beams{' (chosen)' if split == pick else ''}: {ms:.5f} ms "
+                  f"a match ({how}), {ms * 1e3 / steps:.3f} us a GN step",
+                  flush=True)
+    finally:
+        chec.hector_geometry = chosen
+
+
+SWEEPS = {"nn": sweep_nn, "cr_stream": sweep_cr_stream, "plicp": sweep_plicp,
+          "hector": sweep_hector}
+
+
 def main() -> None:
     cs.phase_device()
     dev = torch.device("cuda", 0)
-    sweep_nn(dev)
-    sweep_cr_stream(dev)
+    for name in sys.argv[1:] or SWEEPS:
+        SWEEPS[name](dev)
 
 
 if __name__ == "__main__":

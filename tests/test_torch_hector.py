@@ -352,3 +352,59 @@ def test_map_only_and_mesh(hector_seq):
     assert (out.to_ros_map(level=1) == 100).sum() > 20
     with pytest.raises(NotImplementedError, match="multi-device"):
         HectorSLAM(port_config(cfg), device="cpu", mesh=object())
+
+
+# --- the kernel's design, held on the CPU ---------------------------------
+
+
+@pytest.mark.parametrize("N", [1, 100, 360, 1080, 4096, 4097, 5000, 12345])
+def test_hector_geometry_covers_every_beam_once(N):
+    from tpu_slam_torch.ops.cuda import hector_fused as ch
+
+    geo = ch.hector_geometry(N)
+    T, K, C = geo.threads, geo.beams, geo.chunks
+    assert 32 <= T <= ch.max_threads(K) and T % 32 == 0
+    assert 1 <= K <= ch.MAX_BEAMS_PER_THREAD
+    # the kernel's chunk count, from N
+    assert C == -(-N // (K * T))
+    # beam (c·K + k)·T + t on thread t: every beam once
+    slots = [(c * K + k) * T + t
+             for c in range(C) for k in range(K) for t in range(T)]
+    assert sorted(i for i in slots if i < N) == list(range(N))
+    assert (C - 1) * K * T < N  # no chunk without a beam
+    if C == 1:  # no slot of beams idle on every thread
+        assert (K - 1) * T < N
+    if N <= ch.MAX_THREADS * 4:  # one pass of registers: no chunks
+        assert C == 1
+        assert T == min(ch.THREADS, 32 * -(-N // 32)) or N > ch.THREADS * 8
+
+
+def test_hector_geometry_rejects_beyond_its_limit():
+    from tpu_slam_torch.ops.cuda import hector_fused as ch
+
+    # below one beam; above 4,096 the largest instance takes chunks
+    for N in (0, -1):
+        with pytest.raises(ValueError, match="beams"):
+            ch.hector_geometry(N)
+    assert ch.hector_geometry(4097) == ch.HectorGeometry(
+        ch.max_threads(ch.MAX_BEAMS_PER_THREAD), ch.MAX_BEAMS_PER_THREAD, 2)
+
+
+def test_hector_kernel_constants_are_the_wrappers():
+    import re
+
+    from tpu_slam_torch import _build
+    from tpu_slam_torch.ops.cuda import hector_fused as ch
+
+    src = (_build.CSRC / "hector_fused.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    for name in ("MAX_LEVELS", "MAX_THREADS", "MAX_BEAMS_PER_THREAD"):
+        assert const(name) == getattr(ch, name), name
+    instances = [int(k) for k in re.findall(r"HECTOR_CASE\((\d+)\)", src)]
+    assert sorted(set(instances)) == list(
+        range(1, ch.MAX_BEAMS_PER_THREAD + 1))
+    assert src.count("__syncthreads()") == ch.BARRIERS_PER_STEP
+    assert len(_build.SIGNATURES["hector_fused"][1]) == 15

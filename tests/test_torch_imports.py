@@ -1,8 +1,8 @@
-"""Import hygiene of the port: tpu_slam_torch, chip_smoke and chip_sweep
-must run on a machine without JAX, Flax or PyYAML, and import nothing of
-the JAX package, not even a module of it that imports no JAX. The check
-runs in a fresh interpreter, since this test process already holds jax
-(conftest.py)."""
+"""Import hygiene of the port: tpu_slam_torch, chip_smoke, chip_sweep and
+chip_rates must run on a machine without JAX, Flax or PyYAML, and import
+nothing of the JAX package, not even a module of it that imports no JAX.
+The check runs in a fresh interpreter, since this test process already
+holds jax (conftest.py)."""
 
 import inspect
 import json
@@ -21,6 +21,7 @@ for info in pkgutil.walk_packages(tpu_slam_torch.__path__, "tpu_slam_torch."):
     mods.append(info.name)
 import chip_smoke  # the main guard keeps the chip run from starting
 import chip_sweep
+import chip_rates
 print(json.dumps({"mods": mods,
                   "leaked": [m for m in ("jax", "flax", "yaml")
                              if m in sys.modules],

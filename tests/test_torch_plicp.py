@@ -297,3 +297,252 @@ def test_batched_matcher_recovers_motion():
         *_t(src, sv, tgt, tv), torch.zeros(2, 3))
     truth = np.asarray(geo.relative(jnp.zeros(3), jnp.asarray([0.06, -0.02, 0.04])))
     np.testing.assert_allclose(res.pose.numpy(), [truth] * 2, atol=0.01)
+
+
+# --- the kernel's design, held on the CPU ---------------------------------
+
+
+def _rank_select_model(x, mask, qs):
+    """csrc/plicp_fused.cu's exact selection, in plain torch: each gated
+    source counts the gated errors below its own plus the equal ones at a
+    lower index (its rank in the sorted order), and the source of rank
+    floor(q·(cnt − 1)), clamped to N − 1, writes the quantile into a slot
+    that starts at BIG."""
+    n = x.shape[-1]
+    e = torch.where(mask, x, torch.full_like(x, float("inf")))
+    idx = torch.arange(n)
+    below = e[..., None, :] < e[..., :, None]  # [i, j]: e_j < e_i
+    tie = (e[..., None, :] == e[..., :, None]) & (idx[None, :] < idx[:, None])
+    rank = (below | tie).sum(-1)
+    cnt1 = torch.clamp(mask.sum(-1) - 1, min=0).to(torch.float32)
+    out = []
+    for q in qs:
+        pos = torch.floor(torch.tensor(q, dtype=torch.float32) * cnt1)
+        pos = torch.clamp(pos.to(torch.int64), 0, n - 1)
+        hit = mask & (rank == pos[..., None])
+        slot = torch.where(hit, x, torch.zeros_like(x)).sum(-1)
+        out.append(torch.where(hit.any(-1), slot,
+                               torch.full_like(slot, tmatch.BIG)))
+    return out
+
+
+def _selection_case(kind, n):
+    rng = np.random.default_rng(n)
+    x = rng.random((4, n)).astype(np.float32)
+    m = rng.random((4, n)) > 0.3
+    if kind == "ties":  # many equal |err|: a straight wall, repeated ranges
+        x = rng.integers(0, 3, (4, n)).astype(np.float32) * np.float32(0.02)
+    elif kind == "none_gated":
+        m[:] = False
+    elif kind == "one_gated":
+        m[:] = False
+        m[np.arange(4), rng.integers(0, n, 4)] = True
+    elif kind == "all_gated":
+        m[:] = True
+    return torch.as_tensor(x), torch.as_tensor(m)
+
+
+def _radix_select_model(x, mask, qs):
+    """csrc/plicp_fused.cu's radix select, in plain torch: a histogram of
+    the gated |err| over 1,024 bins of 1/32 octave, (bits >> 18) − 3,072
+    clamped to [0, 1,023]; the bin that holds sorted position
+    r = floor(q·(cnt − 1)) (clamped to N − 1) and the count below it; the
+    gated errors of that bin, each counting the members below and at its
+    value; a member whose [below, at) range holds r − (count below the
+    bin) gives the quantile, and r ≥ cnt gives BIG."""
+    out = []
+    for q in qs:
+        vals = []
+        for row, mrow in zip(x, mask):
+            n = row.shape[0]
+            g = row[mrow]
+            cnt = int(g.numel())
+            cnt1 = torch.tensor(float(max(cnt - 1, 0)), dtype=torch.float32)
+            r = int(torch.floor(torch.tensor(q, dtype=torch.float32) * cnt1))
+            r = min(max(r, 0), n - 1)
+            if r >= cnt:
+                vals.append(torch.tensor(tmatch.BIG, dtype=row.dtype))
+                continue
+            bins = torch.clamp((g.view(torch.int32) >> 18) - (96 << 5),
+                               0, 1023)
+            hist = torch.bincount(bins, minlength=1024)
+            below = torch.cumsum(hist, 0) - hist
+            b = int(torch.nonzero((below <= r) & (r < below + hist))[0, 0])
+            members = g[bins == b]
+            rr = r - int(below[b])
+            lt = (members[None, :] < members[:, None]).sum(-1)
+            le = (members[None, :] <= members[:, None]).sum(-1)
+            hit = (lt <= rr) & (rr < le)
+            assert bool(hit.any()) and torch.unique(members[hit]).numel() == 1
+            vals.append(members[hit][0])
+        out.append(torch.stack(vals))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 7, 360, 1024])
+@pytest.mark.parametrize(
+    "kind", ["random", "ties", "none_gated", "one_gated", "all_gated"])
+def test_rank_selection_equals_masked_quantiles(kind, n):
+    x, m = _selection_case(kind, n)
+    qs = (0.0, 0.7, 0.9, 1.0)
+    for want, got in zip(tmatch.masked_quantiles(x, m, qs),
+                         _rank_select_model(x, m, qs)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 360, 1024])
+@pytest.mark.parametrize(
+    "kind", ["random", "ties", "none_gated", "one_gated", "all_gated",
+             "spread"])
+def test_radix_selection_equals_masked_quantiles(kind, n):
+    if kind == "spread":  # |err| over many octaves, past both end bins
+        rng = np.random.default_rng(n + 1)
+        x = torch.as_tensor((10.0 ** rng.uniform(-12, 1, (4, n)))
+                            .astype(np.float32))
+        m = torch.as_tensor(rng.random((4, n)) > 0.2)
+    else:
+        x, m = _selection_case(kind, n)
+    qs = (0.0, 0.7, 0.9, 1.0)
+    for want, got in zip(tmatch.masked_quantiles(x, m, qs),
+                         _radix_select_model(x, m, qs)):
+        assert torch.equal(got, want)
+
+
+def _pruned_nn_model(src, tgt, tv, seed, tile=32, slack=4e-6):
+    """csrc/plicp_fused.cu's NN, in plain float32 torch, one source at a
+    time (the kernel's warp scans a tile when any lane needs it, which
+    only adds targets): d = valid ? dx² + dy² : BIG; the bound from target
+    0 and the 8 targets around ``seed``; target 0, then the tiles in
+    order, skipping a tile whose box (of its valid targets, or BIG where
+    it holds an invalid one) lies beyond the bound and the best so far;
+    a strict < within. Returns the picks and how many tiles were
+    skipped."""
+    M = tgt.shape[0]
+    dx = src[:, None, 0] - tgt[None, :, 0]
+    dy = src[:, None, 1] - tgt[None, :, 1]
+    d = torch.where(tv[None, :], dx * dx + dy * dy,
+                    torch.tensor(tmatch.BIG, dtype=torch.float32))
+    inf = float("inf")
+    boxes = []
+    for t0 in range(0, M, tile):
+        sl = slice(t0, min(t0 + tile, M))
+        v = tv[sl]
+        pts = tgt[sl][v]
+        lo = pts.min(0).values if len(pts) else torch.tensor([inf, inf])
+        hi = pts.max(0).values if len(pts) else torch.tensor([-inf, -inf])
+        boxes.append((lo, hi, tmatch.BIG if bool((~v).any()) else inf))
+    picks, skipped = [], 0
+    for i in range(src.shape[0]):
+        j0 = min(max(int(seed[i]) - 4, 0), max(M - 8, 0))
+        bound = torch.minimum(d[i, 0], d[i, j0:j0 + 8].min())
+        best, j1 = d[i, 0], 0
+        for k, (lo, hi, inv) in enumerate(boxes):
+            g = torch.clamp(torch.maximum(lo - src[i], src[i] - hi), min=0)
+            lb = torch.minimum(g[0] * g[0] + g[1] * g[1],
+                               torch.tensor(inv, dtype=torch.float32))
+            if lb * (1 - slack) > torch.minimum(bound, best) + 1e-30:
+                skipped += 1
+                continue
+            for j in range(max(k * tile, 1), min(k * tile + tile, M)):
+                if d[i, j] < best:
+                    best, j1 = d[i, j], j
+        picks.append(j1)
+    return torch.tensor(picks), skipped
+
+
+@pytest.mark.parametrize("case", ["scan_pair", "invalid_tiles", "far",
+                                  "duplicates", "no_valid"])
+def test_pruned_nn_picks_the_exhaustive_first_minimum(case):
+    rng = np.random.default_rng(3)
+    src, _sv, tgt, tv = (torch.as_tensor(a[0]) for a in _pairs(1))
+    tgt = torch.where(tv[:, None], tgt, torch.zeros(()))
+    seed = torch.arange(src.shape[0]) * tgt.shape[0] // src.shape[0]
+    if case == "invalid_tiles":  # whole tiles and scattered beams invalid
+        tv = tv.clone()
+        tv[64:128] = False
+        tv[::7] = False
+    elif case == "far":  # sources beyond every box; seeds far off
+        src = src + torch.tensor([40.0, -25.0])
+        seed = torch.as_tensor(rng.integers(0, tgt.shape[0], src.shape[0]))
+    elif case == "duplicates":  # repeated targets: the first copy wins
+        tgt = tgt[:120].repeat(3, 1)
+        tv = tv[:120].repeat(3)
+        src = torch.round(src * 4) / 4
+    elif case == "no_valid":
+        tv = torch.zeros_like(tv)
+    dx = src[:, None, 0] - tgt[None, :, 0]
+    dy = src[:, None, 1] - tgt[None, :, 1]
+    d = torch.where(tv[None, :], dx * dx + dy * dy,
+                    torch.tensor(tmatch.BIG, dtype=torch.float32))
+    want = torch.argmin(d, dim=-1)  # the first index of the minimum
+    got, skipped = _pruned_nn_model(src, tgt, tv, seed)
+    assert torch.equal(got, want)
+    if case == "scan_pair":  # the pruning does skip most tiles
+        assert skipped > 0.5 * src.shape[0] * -(-tgt.shape[0] // 32)
+
+
+PLICP_SHAPES = [  # chip_smoke's batches, its edge case, the wrapper's limits
+    (512, 360, 360), (2048, 360, 360), (5760, 360, 360), (6, 100, 130),
+    (600, 1, 360), (600, 1024, 360), (600, 360, 1), (600, 360, 4096),
+    (1, 1024, 4096), (1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("shape", PLICP_SHAPES)
+def test_plicp_geometry_covers_every_source_once(shape):
+    from tpu_slam_torch.ops.cuda import plicp_fused as cp
+
+    B, N, M = shape
+    sms = 132
+    geo = cp.plicp_geometry(B, N, M, sms)
+    T, S = geo.threads, geo.sources
+    assert 32 <= T <= cp.MAX_THREADS and T % 32 == 0
+    assert 1 <= S <= cp.MAX_SOURCES and T <= cp.max_threads(S)
+    # source s·T + t on thread t: every source once, no thread idle in
+    # every slot
+    slots = [s * T + t for s in range(S) for t in range(T)]
+    assert sorted(i for i in slots if i < N) == list(range(N))
+    assert (S - 1) * T < N
+    assert geo.smem == cp.smem_bytes(N, M, T, S)
+    assert geo.smem <= _build.SMEM_PER_BLOCK
+    if B >= sms and N == 360:
+        assert S == cp.SOURCES_PER_THREAD
+    if B < sms:  # fewer pairs than SMs: one source a thread
+        assert S == 1
+
+
+def test_plicp_kernel_constants_are_the_wrappers():
+    import re
+
+    from tpu_slam_torch.ops.cuda import plicp_fused as cp
+
+    src = (_build.CSRC / "plicp_fused.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    for name in ("MAX_THREADS", "MAX_SOURCES", "NV1", "NV2", "TILE",
+                 "BINS"):
+        assert const(name) == getattr(cp, name), name
+    instances = [int(k) for k in re.findall(r"PLICP_CASE\((\d+)\)", src)]
+    assert sorted(set(instances)) == list(range(1, cp.MAX_SOURCES + 1))
+    # the staging barrier, then the design's barriers a round
+    assert src.count("__syncthreads()") == 1 + cp.BARRIERS_PER_ROUND
+    # one design: no bitonic sort, and no switch to another NN or selection
+    assert "bitonic" not in src and "design" not in src
+    assert len(_build.SIGNATURES["plicp_fused"][1]) == 22
+
+
+def test_plicp_wrapper_rejects_beyond_its_limits():
+    from tpu_slam_torch.ops.cuda import plicp_fused as cp
+
+    cfg = tconfig.PLICPConfig()
+    meta = torch.device("meta")
+    for N, M in ((cp.MAX_BEAMS + 1, 360), (360, cp.MAX_TARGETS + 1)):
+        z = torch.zeros
+        with pytest.raises(ValueError, match="outside"):
+            cp.launch_plicp(z((2, N, 2), device=meta),
+                            z((2, N), dtype=torch.bool, device=meta),
+                            z((2, M, 2), device=meta),
+                            z((2, M), dtype=torch.bool, device=meta), cfg,
+                            z((2, 3), device=meta))

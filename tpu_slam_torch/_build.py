@@ -39,9 +39,9 @@ SIGNATURES = {
         "plicp_fused_launch",
         # src, src_valid, tgt, tgt_valid, init, pose, stats, H,
         # B, N, M, rounds, max_d2, eps_xy, eps_th, q_perc, q_adap,
-        # adap_mult, stream
+        # adap_mult, threads, sources a thread, smem, stream
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-         _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _VP],
+         _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _VP],
     ),
     "cr_lm": (
         "cr_lm_launch",
@@ -66,8 +66,10 @@ SIGNATURES = {
     "hector_fused": (
         "hector_fused_launch",
         # grids, sizes, geo (host arrays), L, pts, valid, pose_in, out, N,
-        # iters_fine, iters_coarse, max_rot_step, stream
-        [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
+        # iters_fine, iters_coarse, max_rot_step, threads, beams a thread,
+        # stream
+        [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _I,
+         _VP],
     ),
     "correlative_response": (
         "correlative_response_launch",

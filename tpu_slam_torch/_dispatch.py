@@ -20,6 +20,8 @@ path went through the kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -36,6 +38,18 @@ def route(t: torch.Tensor) -> str:
     if kind in ("cuda", "cpu"):
         return kind
     raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device ``dev``, on which a kernel's launch
+    geometry depends."""
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
 
 
 def count_launch(name: str) -> None:

@@ -57,11 +57,6 @@ def tile_sources(N: int, M: int, lanes: int) -> NNGeometry:
     return NNGeometry(lanes, threads, tiles, 16 * M)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def nearest_neighbor_cuda(
     src: torch.Tensor,  # (B, N, 2) float32
     tgt: torch.Tensor,  # (B, M, 2) float32
@@ -85,9 +80,7 @@ def nearest_neighbor_cuda(
     idx = torch.empty((B, N), dtype=torch.int64, device=dev)
     d2 = torch.empty((B, N), dtype=torch.float32, device=dev)
     if B > 0:
-        geo = nn_geometry(B, N, M, _sm_count(dev.index
-                                             if dev.index is not None
-                                             else torch.cuda.current_device()))
+        geo = nn_geometry(B, N, M, _dispatch.sm_count(dev))
         if geo.tiles > MAX_TILES:
             raise ValueError(f"N={N} outside the NN kernel's range")
         _build.launch(

@@ -1,15 +1,18 @@
 """Batched PL-ICP in one CUDA launch — port of
 ``tpu_slam/ops/pallas/plicp_fused.py::plicp_match_fused``.
 
-The kernel is ``csrc/plicp_fused.cu``; its plain PyTorch version is
+The kernel is ``csrc/plicp_fused.cu``, launched on the shape
+``plicp_geometry`` chooses; its plain PyTorch version is
 ``ops/plicp.plicp_match`` with the plain ``nearest_neighbor``. Tensors on
 ``cuda`` launch the kernel, tensors on ``cpu`` run the plain version
-(``_dispatch.route``). The covariance
-σ²·inv(H + 1e-6·I) is formed here from the kernel's H, outside the kernel,
-as in the reference.
+(``_dispatch.route``). The covariance σ²·inv(H + 1e-6·I) is formed here
+from the kernel's H, outside the kernel, as in the reference.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -18,8 +21,57 @@ from tpu_slam_torch.config import PLICPConfig
 from tpu_slam_torch.ops.matching import nearest_neighbor
 from tpu_slam_torch.ops.plicp import PLICPResult, covariance_from_h, plicp_match
 
-MAX_BEAMS = 1024  # one thread per source beam
+MAX_BEAMS = 1024  # source beams a pair
 MAX_TARGETS = 4096  # target beams held in shared memory
+MAX_THREADS = 1024  # threads a block (plicp_fused.cu)
+MAX_SOURCES = 8  # sources a thread (plicp_fused.cu's template instances)
+# sources a thread once the batch fills the card (at least one pair an
+# SM); chip_sweep.py times 1 … 6 at the bench and mission batches
+SOURCES_PER_THREAD = 2
+NV1, NV2 = 11, 9  # the two GN steps' sums: per-warp partials in shared
+TILE = 32  # targets a bounding box (plicp_fused.cu)
+BINS = 1024  # the radix select's histogram (plicp_fused.cu)
+BARRIERS_PER_ROUND = 5  # the design's, csrc/plicp_fused.cu
+
+
+class PLICPGeometry(NamedTuple):
+    threads: int  # T threads a pair (one block)
+    sources: int  # S sources a thread: source s·T + t on thread t
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def max_threads(sources: int) -> int:
+    """The most threads a block of the S-sources instance takes: its
+    ``__launch_bounds__(1024 / S)`` in whole warps."""
+    return 32 * (MAX_THREADS // sources // 32)
+
+
+def smem_bytes(N: int, M: int, threads: int, sources: int) -> int:
+    """The kernel's layout: M float4 targets and a float4 box and a flag
+    per tile of ``TILE`` targets, two ``BINS``-bin histograms, 2N
+    gathered errors, the two GN steps' partials of each group of 32
+    sources, two quantile slots and two counters."""
+    tiles = -(-M // TILE)
+    groups = sources * threads // 32
+    return 16 * (M + tiles) + 4 * (2 * BINS + tiles + 2 * N
+                                   + groups * (NV1 + NV2) + 4)
+
+
+@functools.lru_cache(maxsize=256)
+def plicp_geometry(B: int, N: int, M: int, sms: int) -> PLICPGeometry:
+    """The kernel's shape for B pairs of N sources and M targets on a card
+    of ``sms`` SMs: ``SOURCES_PER_THREAD`` sources a thread once there is
+    a pair for every SM, one a thread below that (each pair then has an
+    SM to itself, and more warps shorten its rounds); more sources a
+    thread where the block would exceed its instance's thread cap."""
+    spt = SOURCES_PER_THREAD if B >= sms else 1
+    while True:
+        threads = 32 * -(-N // (32 * spt))
+        sources = -(-N // threads)
+        if threads <= max_threads(sources):
+            return PLICPGeometry(threads, sources,
+                                 smem_bytes(N, M, threads, sources))
+        spt += 1
 
 
 def _check(name, t, dtype, shape, device):
@@ -30,6 +82,44 @@ def _check(name, t, dtype, shape, device):
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch_plicp(src_pts, src_valid, tgt_pts, tgt_valid, cfg: PLICPConfig,
+                 init_pose):
+    """The kernel's one launch on CUDA tensors: (pose (B, 3), stats (B, 4)
+    = error, inliers, converged, 0; H (B, 9) of the last round's second
+    step, with the ridge)."""
+    if not cfg.use_point_to_line_distance:
+        raise ValueError("the PL-ICP kernel implements the point-to-line form")
+    B, N, _ = src_pts.shape
+    M = tgt_pts.shape[1]
+    dev = src_pts.device
+    _check("src_pts", src_pts, torch.float32, (B, N, 2), dev)
+    _check("src_valid", src_valid, torch.bool, (B, N), dev)
+    _check("tgt_pts", tgt_pts, torch.float32, (B, M, 2), dev)
+    _check("tgt_valid", tgt_valid, torch.bool, (B, M), dev)
+    _check("init_pose", init_pose, torch.float32, (B, 3), dev)
+    if not (0 < N <= MAX_BEAMS and 0 < M <= MAX_TARGETS):
+        raise ValueError(f"beam counts N={N}, M={M} outside the kernel's range")
+    if dev.type != "cuda":
+        raise ValueError(f"the PL-ICP kernel takes CUDA tensors, not {dev}")
+    pose = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    H = torch.empty((B, 9), dtype=torch.float32, device=dev)
+    if B > 0:
+        geo = plicp_geometry(B, N, M, _dispatch.sm_count(dev))
+        _build.launch(
+            "plicp_fused",
+            src_pts.data_ptr(), src_valid.data_ptr(), tgt_pts.data_ptr(),
+            tgt_valid.data_ptr(), init_pose.data_ptr(), pose.data_ptr(),
+            stats.data_ptr(), H.data_ptr(), B, N, M, cfg.max_iterations,
+            cfg.max_correspondence_dist**2, cfg.epsilon_xy, cfg.epsilon_theta,
+            cfg.outliers_maxPerc, cfg.outliers_adaptive_order,
+            cfg.outliers_adaptive_mult, geo.threads, geo.sources, geo.smem,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _dispatch.count_launch("plicp_fused")
+    return pose, stats, H
 
 
 def plicp_match_fused(
@@ -45,35 +135,12 @@ def plicp_match_fused(
     if _dispatch.route(src_pts) == "cpu":
         return plicp_match(src_pts, src_valid, tgt_pts, tgt_valid, cfg,
                            init_pose=init_pose, nn=nearest_neighbor)
-    if not cfg.use_point_to_line_distance:
-        raise ValueError("the PL-ICP kernel implements the point-to-line form")
-    B, N, _ = src_pts.shape
-    M = tgt_pts.shape[1]
-    dev = src_pts.device
+    B = src_pts.shape[0]
     if init_pose is None:
-        init_pose = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-    _check("src_pts", src_pts, torch.float32, (B, N, 2), dev)
-    _check("src_valid", src_valid, torch.bool, (B, N), dev)
-    _check("tgt_pts", tgt_pts, torch.float32, (B, M, 2), dev)
-    _check("tgt_valid", tgt_valid, torch.bool, (B, M), dev)
-    _check("init_pose", init_pose, torch.float32, (B, 3), dev)
-    if not (0 < N <= MAX_BEAMS and 0 < M <= MAX_TARGETS):
-        raise ValueError(f"beam counts N={N}, M={M} outside the kernel's range")
-    pose = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
-    H = torch.empty((B, 9), dtype=torch.float32, device=dev)
-    if B > 0:
-        _build.launch(
-            "plicp_fused",
-            src_pts.data_ptr(), src_valid.data_ptr(), tgt_pts.data_ptr(),
-            tgt_valid.data_ptr(), init_pose.data_ptr(), pose.data_ptr(),
-            stats.data_ptr(), H.data_ptr(), B, N, M, cfg.max_iterations,
-            cfg.max_correspondence_dist**2, cfg.epsilon_xy, cfg.epsilon_theta,
-            cfg.outliers_maxPerc, cfg.outliers_adaptive_order,
-            cfg.outliers_adaptive_mult,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _dispatch.count_launch("plicp_fused")
+        init_pose = torch.zeros((B, 3), dtype=torch.float32,
+                                device=src_pts.device)
+    pose, stats, H = launch_plicp(src_pts, src_valid, tgt_pts, tgt_valid,
+                                  cfg, init_pose)
     return PLICPResult(
         pose=pose,
         error=stats[:, 0],
