@@ -1,16 +1,22 @@
-"""Mission and Hector scans/s of one checkout, for comparing two commits
-within one call on the card.
+"""Mission and Hector scans/s of one checkout, and the device time of the
+PL-ICP and NN kernels at the main paths' shapes, for comparing two
+commits within one call on the card.
 
     python3 chip_rates.py LABEL
 
 Runs ``chip_smoke``'s recipes from the checkout it is started in (its
 ``chip_smoke.py`` and ``tpu_slam_torch``): the bench mission through
 ``offline_slam`` and the 150-scan Hector run, each once to warm up and
-then ``RUNS`` times. Prints one line, ``RATES`` and a JSON object with
-the label, each run's scans/s (sorted) and their medians. To compare a
-parent with a change on one card, copy this file into both checkouts
-and run it in each, alternating: parent, change, change, parent.
-Host-bound rates spread between calls, so compare only within one.
+then ``RUNS`` times; the PL-ICP kernel on the 512-pair bench batch, on
+its first 64 pairs (one source a thread) and on the mission's first
+chain and loop batches, and the NN kernel at the odometry's 1 × 360 ×
+360, each timed as a replayed CUDA graph of its launches
+(``chip_smoke.graph_ms``). Prints one line, ``RATES`` and a JSON object
+with the label, each run's scans/s (sorted), their medians and the
+kernels' ms a launch. To compare a parent with
+a change on one card, copy this file into both checkouts and run it in
+each, alternating: parent, change, change, parent. Host-bound rates
+spread between calls, so compare only within one.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import torch
 
 import chip_smoke as cs
 from tpu_slam_torch.models.offline import offline_slam
+from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda
+from tpu_slam_torch.ops.cuda.plicp_fused import launch_plicp
 
 RUNS = 5
 
@@ -48,12 +56,32 @@ def main() -> None:
     mission = rates(lambda: offline_slam(scans, cfg, odom=odom), len(gt))
     hcfg, hscans, hgt = cs.hector_seq(cs.HECTOR_SCANS, dev)
     hector = rates(lambda: cs.hector_run(hcfg, hscans, hgt, dev), len(hgt))
+    pcfg, pairs, g = cs.plicp_bench_batch(dev)
+    plicp_ms = cs.graph_ms(lambda: launch_plicp(*pairs, pcfg.plicp, g),
+                           50)[0]
+    small = [a[:64].contiguous() for a in pairs]
+    plicp64_ms = cs.graph_ms(
+        lambda: launch_plicp(*small, pcfg.plicp, g[:64]), 50)[0]
+    with cs.recording_batches() as rec:
+        offline_slam(scans, cfg, odom=odom)
+    batch_ms = {}
+    for key in ("chain", "loop"):
+        batch = cs.mission_pairs(*rec[key][:5])
+        batch_ms[key] = cs.graph_ms(
+            lambda: launch_plicp(*batch, cfg.plicp, rec[key][5]), 20)[0]
+    _c, lscans, _g = cs.lesson_recipe(dev, 2)
+    src, _sv, tgt, tv = cs.masked_pairs(lscans)
+    nn_ms = cs.graph_ms(lambda: nearest_neighbor_cuda(src, tgt, tv), 500)[0]
     print("RATES " + json.dumps({
         "label": sys.argv[1] if len(sys.argv) > 1 else "",
         "mission_scans_s": mission,
         "mission_median": statistics.median(mission),
         "hector_scans_s": hector,
-        "hector_median": statistics.median(hector)}), flush=True)
+        "hector_median": statistics.median(hector),
+        "plicp_512_pairs_ms": plicp_ms, "plicp_64_pairs_ms": plicp64_ms,
+        "plicp_chain_ms": batch_ms["chain"], "plicp_loop_ms": batch_ms["loop"],
+        "nn_odometry_ms": nn_ms}),
+        flush=True)
 
 
 if __name__ == "__main__":

@@ -24,11 +24,15 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      invalid and non-finite beams; the CR-LM's launch geometry at W = 1,
      2, 6 and 8, K = 32 (one block), 128, 256 and 512 (W 8 × K 512: the
      largest shared-memory slices); a 3-node graph), and the PL-ICP
-     kernel at the wrapper's limits (N 1,024 × M 4,096: shared memory
-     above 48 KB), at N = 1, on degenerate pairs (an all-invalid target,
-     a source of 2 valid beams, a straight wall whose residuals all tie)
-     and on one batch whose pairs converge in round 1 beside pairs that
-     run all 10;
+     kernel at one chunk's ends (N 1,024 × M 4,096: shared memory above
+     48 KB), past them in chunks of sources and of staged targets (N
+     1,081 × M 1,081, 1,081 × 5,000, 4,097 × 12,345 and 20,000 × 1,081,
+     whose gathered lists go to device scratch; the plain version with
+     the kernel's direct-form NN there, since at 5,000 beams and more
+     the expanded form's rounding splits near-ties), at N = 1, on
+     degenerate pairs (an all-invalid target, a source of 2 valid beams,
+     a straight wall whose residuals all tie) and on one batch whose
+     pairs converge in round 1 beside pairs that run all 10;
   5. the main path, with the launch counters zeroed first: the offline
      Karto mission (3 laps of the corridor world, 360 beams) through
      ``offline_slam``, then the bench pose graph through
@@ -85,6 +89,16 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      must stay ≤ 0.01 m; then its scans/s (median of 3 runs after the
      counted one, which warms it), the stage timer, and one run under
      ``torch.profiler``;
+ 14b. the outdoor offline mission, with the launch counters zeroed
+     first: benchmarks/bench_outdoor.py's 1-lap recipe (3,234 scans of
+     360 beams, ``preset("karto_outdoor")``, no cut) through
+     ``offline_slam`` once after a 600-scan warm-up: its wall and
+     scans/s, the stage timer, the skip edges, anchors and loops
+     accepted, the solves' route, the chain and final ATE (final ≤ 0.01 m
+     and below the chain's; ≥ 1 skip edge, ≥ 1 anchor, ≥ 4 loops; the
+     PL-ICP and correlative kernels launched); then the correlative
+     kernel int32 for int32 against its plain version on one anchor
+     group of each level, coarse and fine pass, at the final poses;
  15. the NN kernel against its plain version
      (``ops/matching.nearest_neighbor_direct``), bit for bit in indices
      and distances, at the odometry's shape (1 × 360 × 360) and the
@@ -95,8 +109,10 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      M = 4,096 over many source tiles, no valid target, duplicated
      targets, sources far outside), on each path of ``nn_geometry``
      (32 lanes a source with M = 7 < 32, M = 37 not a multiple of the
-     lanes, one lane a source with N = 361) and on the reference's NaN
-     rule (NaN sources, NaN targets: index M, d2 NaN);
+     lanes, one lane a source with N = 361), on the reference's NaN
+     rule (NaN sources, NaN targets: index M, d2 NaN) and past one
+     staged chunk of 4,096 targets (M 5,000 and 12,345, a copy of the
+     first chunk in the second, NaN sources and targets);
  16. the lesson main paths over examples/run_plicp_odometry.py's 200
      scans at 360 beams, each with the launch counters zeroed first:
      ``ICPOdometry.run``, ``PLICPOdometry.run`` and ``ScanMatchPLICP.run``.
@@ -134,10 +150,12 @@ and nothing of the JAX package. Phases, each printing its own line(s):
  23. ``offline_slam(corrected_pts=...)`` on the 80-scan undistortion
      recipe: every match a PL-ICP launch, the corrected chain's ATE under
      the raw one's;
- 24. one JSON line with every kernel (its launches, error against its
-     plain version, both times, and its bound: the larger of bytes over
-     3.35 TB/s and operations over 67 T/s in float32, or 16.7 T/s for the
-     correlative kernel's int32 adds), then ``{"ok": true, ...}`` last.
+ 24. one JSON line with every kernel (its launches, the PL-ICP and
+     correlative kernels' counting the outdoor mission's too, its error
+     against its plain version, both times, and its bound: the larger of
+     bytes over 3.35 TB/s and operations over 67 T/s in float32, or 16.7
+     T/s for the correlative kernel's int32 adds), then ``{"ok": true,
+     ...}`` last.
 Phases 20-23 run right after phase 4. Any failing phase raises: the
 script then exits non-zero and never prints the ok line. Without a CUDA
 device it raises at phase 1. A ``[time]`` line after each group of
@@ -159,7 +177,7 @@ import torch
 from tpu_slam_torch import _build, _dispatch
 from tpu_slam_torch import geometry as geo
 from tpu_slam_torch import geometry_np as gnp
-from tpu_slam_torch.config import SolverConfig, default_config
+from tpu_slam_torch.config import SolverConfig, default_config, preset
 from tpu_slam_torch.convert import solver_from_numpy
 from tpu_slam_torch.data import simulator as sim
 from tpu_slam_torch.data.scan import Scan, index_scan, make_scan
@@ -175,6 +193,7 @@ from tpu_slam_torch.models.scan_match_plicp import ScanMatchPLICP
 from tpu_slam_torch.ops import correlative as corr
 from tpu_slam_torch.ops import gridmap as gm
 from tpu_slam_torch.ops import hector as hec
+from tpu_slam_torch.ops.cuda import correlative_response as corr_response
 from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
 from tpu_slam_torch.ops.cuda.hector_fused import (
     BARRIERS_PER_STEP, hector_geometry, hector_match_fused,
@@ -220,6 +239,11 @@ HECTOR_H_RTOL, HECTOR_H_ATOL = 1e-3, 1e-2
 HECTOR_ATE_MAX = 0.06  # m, map frame, test_hector.py's bound
 HECTOR_SCANS = 150  # examples/run_hector_slam.py
 KARTO_ATE_MAX = 0.01  # m
+# the outdoor mission (benchmarks/bench_outdoor.py's 1-lap recipe): 2x the
+# reference's recorded 0.005 m (BENCHMARKS.md:736), and what must fire
+OUTDOOR_ATE_MAX = 0.01  # m
+OUTDOOR_WARM_SCANS = 600
+OUTDOOR_MIN = {"skip edges": 1, "anchors": 1, "loops": 4}
 # the reference's run of the Karto recipe at the full width on the CPU
 KARTO_REF = {"accepted": 126, "closures": 2, "ate": 0.00577}
 # the lesson front-ends: examples/run_plicp_odometry.py's recipe (200 scans
@@ -698,11 +722,20 @@ def phase_edge_cases(dev) -> None:
         raise AssertionError("PCG-LM kernel edge case disagrees")
 
 
-def plicp_edge(label, cfg, src, sv, tgt, tv, g):
+def plicp_edge(label, cfg, src, sv, tgt, tv, g, nn=nearest_neighbor):
     """The PL-ICP kernel against its plain version on one edge batch, at
-    phase_edge_cases' bars; returns (kernel, plain) results."""
+    phase_edge_cases' bars; returns (kernel, plain) results. ``nn`` is the
+    plain version's nearest neighbour: the expanded form by default, the
+    kernel's direct form (``nearest_neighbor_direct``) where the targets
+    are dense enough that the expanded form's rounding splits near-ties
+    (the expanded form's gap is then printed for information)."""
     k = plicp_match_fused(src, sv, tgt, tv, cfg.plicp, init_pose=g)
-    p = plain_plicp(src, sv, tgt, tv, cfg.plicp, init_pose=g)
+    p = plicp_match(src, sv, tgt, tv, cfg.plicp, init_pose=g, nn=nn)
+    info = ""
+    if nn is not nearest_neighbor:
+        e = plain_plicp(src, sv, tgt, tv, cfg.plicp, init_pose=g)
+        info = (f" (against the expanded-form NN, for information: pose "
+                f"max|d|={float(pose_gap(k.pose, e.pose).max()):.3e})")
     torch.cuda.synchronize()
     B, N, _ = src.shape
     M = tgt.shape[1]
@@ -711,10 +744,14 @@ def plicp_edge(label, cfg, src, sv, tgt, tv, g):
     dpose = float(pose_gap(k.pose, p.pose).max())
     dinl = int((k.num_inliers - p.num_inliers).abs().max())
     print(f"{label}: B={B} N={N} M={M} geometry {shape.threads} threads x "
-          f"{shape.sources} sources, {shape.smem} B shared; pose max|d|="
+          f"{shape.sources} sources x {shape.source_chunks} chunks, "
+          f"{shape.target_chunks} target chunks of {shape.targets}, "
+          f"{shape.smem} B shared, lists in "
+          f"{'device scratch' if shape.lists_global else 'shared'}, "
+          f"{4 * shape.scratch} B scratch a pair; pose max|d|="
           f"{dpose:.3e} inliers kernel {k.num_inliers.tolist()[:8]} max|d|="
           f"{dinl} converged {int(k.converged.sum())}/"
-          f"{int(p.converged.sum())}", flush=True)
+          f"{int(p.converged.sum())}{info}", flush=True)
     if not (dpose <= PLICP_POSE_TOL and dinl <= 1
             and bool(torch.isfinite(k.pose).all())
             and torch.equal(k.converged, p.converged)):
@@ -757,6 +794,18 @@ def phase_plicp_edges(dev) -> None:
     pairs = office_pairs(dev, 2, 1024, 4096)
     plicp_edge("edge plicp N=1,024 M=4,096", cfg, *pairs,
                torch.zeros((2, 3), **f32))
+    # past one pass of sources (1,024) and one staged chunk of targets
+    # (4,096): chunks of each, the records in device scratch; at 20,000
+    # sources the lists too. Targets of 5,000 beams and more lie ~4 mm
+    # apart, where the expanded-form NN's rounding splits near-ties, so
+    # the plain version takes the kernel's direct-form NN
+    for n_src, n_tgt in ((1081, 1081), (1081, 5000), (4097, 12345),
+                         (20000, 1081)):
+        plicp_edge(f"edge plicp N={n_src:,} M={n_tgt:,}", cfg,
+                   *office_pairs(dev, 3, n_src, n_tgt),
+                   torch.tensor([[0.0, 0.0, 0.0], [0.03, -0.02, 0.01],
+                                 [-0.05, 0.04, -0.02]], **f32),
+                   nn=nearest_neighbor_direct)
     src, sv, tgt, tv = office_pairs(dev, 4, 360, 360)
     first = sv.float().argmax(-1)  # each source's first valid beam
     rows = torch.arange(4, device=dev)
@@ -1558,11 +1607,35 @@ def response_case(matcher, idx, pts, valid, poses, query: int, offset,
     return grid.to(torch.uint8), ys, xs, q_valid, len(xo), len(yo), stride
 
 
+def window_cells(grid, ys, xs, valid, nx, ny, stride) -> int:
+    """The distinct grid cells that the valid beams' windows read (starts
+    clamped as ``sum_windows`` clamps them): the bytes of the grids that
+    the function needs, a lane at a time."""
+    C, H, W = grid.shape
+    dev = grid.device
+    lat = ((torch.arange(ny, device=dev) * (stride * W))[:, None]
+           + torch.arange(nx, device=dev) * stride).reshape(-1)
+    span_x, span_y = (nx - 1) * stride + 1, (ny - 1) * stride + 1
+    cells = 0
+    for c in range(C):
+        starts = (torch.clamp(ys[c].long(), 0, H - span_y) * W
+                  + torch.clamp(xs[c].long(), 0, W - span_x))
+        starts = torch.unique(starts[:, valid[c]])
+        touched = torch.zeros(H * W, dtype=torch.bool, device=dev)
+        for k in range(0, len(starts), 4096):
+            touched[(starts[k:k + 4096, None] + lat).reshape(-1)] = True
+        cells += int(touched.sum())
+    return cells
+
+
 def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
                      reps=(100, 2)):
     """The kernel against its plain version: int32 equality, both times
     (the kernel's from ``graph_ms``, the plain version's from CUDA events;
-    none when ``reps`` is 0) and the bound of this work."""
+    none when ``reps`` is 0) and the bound of this work. ``valid`` is
+    (C, N), or (N,) taken by every lane."""
+    C, A, N = ys.shape
+    valid = valid.expand(C, N)
 
     def kern():
         return responses_sliced(grid, ys, xs, valid, nx, ny, stride)
@@ -1573,13 +1646,13 @@ def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
     k, pl = kern(), plain()
     torch.cuda.synchronize()
     err = int((k - pl).abs().max())
-    C, A, N = ys.shape
     nv = int(valid.sum())
-    # each input read once (the grids, the starts, the flags), the
-    # numerators written once; one int32 add per lane, heading, candidate
-    # and valid beam
-    work = bound(grid.numel() + 8 * ys.numel() + N + 4 * k.numel(),
-                 float(C * A * nx * ny * nv), PEAK_INT32_OPS)
+    # the grid cells the valid beams' windows read, the starts and the
+    # flags read once, the numerators written once; one int32 add per
+    # lane, heading, candidate and valid beam of the lane
+    cells = window_cells(grid, ys, xs, valid, nx, ny, stride)
+    work = bound(cells + 8 * ys.numel() + C * N + 4 * k.numel(),
+                 float(A * nx * ny * nv), PEAK_INT32_OPS)
     ms, plain_ms, times = None, None, "not timed"
     if reps[0]:
         ms, host_us, how = graph_ms(kern, reps[0])
@@ -1591,7 +1664,8 @@ def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
           f"{stride} beams={N} valid={nv} grid {grid.shape[1]}x"
           f"{grid.shape[2]} int32 equal {err == 0} max|d|={err} sum "
           f"{int(k.sum())} {times} bound {work['bound_ms']:.6f} ms "
-          f"({work['bound_by']})", flush=True)
+          f"({work['bound_by']}; {cells} grid cells of {grid.numel()} read)",
+          flush=True)
     if err != 0 or k.shape != (C, A, nx * ny):
         raise AssertionError(f"{label}: the correlative kernel disagrees "
                              "with its plain version")
@@ -1787,6 +1861,141 @@ def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
     return launches
 
 
+# --- the outdoor offline mission ------------------------------------------
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def outdoor_recipe(dev, n: int | None = None):
+    """benchmarks/bench_outdoor.py's 1-lap recipe (bench_outdoor.py:100-124)
+    on the port's simulator: ``preset("karto_outdoor")``, outdoor_world(arm
+    80, street 16, seed 4), the street's centre line at 0.9 m/s and 0.1 s
+    a scan (3,234 scans of 360 beams), noise 0.01 with seed 6, odometry
+    noise 0.015 m and 0.003 rad from default_rng(3); the first ``n`` scans
+    where given. Returns (cfg, scans on ``dev``, odometry, true poses)."""
+    cfg = preset("karto_outdoor")
+    traj = sim.outdoor_lap(arm=80.0, street=16.0)
+    if n:
+        traj = traj[:n]
+    world = sim.outdoor_world(arm=80.0, street=16.0, seed=4)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.01, seed=6)
+    rng = np.random.default_rng(3)
+    odom = [seq.gt_poses[0].copy()]
+    for i in range(1, len(seq.gt_poses)):
+        d = gnp.relative(seq.gt_poses[i - 1], seq.gt_poses[i])
+        d[:2] += rng.normal(0, 0.015, 2)
+        d[2] += rng.normal(0, 0.003)
+        odom.append(gnp.compose(odom[-1], d))
+    scans = make_scan(seq.ranges, cfg.scan,
+                      stamp=seq.stamps.astype(np.float32), device=dev)
+    return cfg, scans, np.asarray(odom), seq.gt_poses
+
+
+def outdoor_run(cfg, scans, odom):
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    res = offline_slam(scans, cfg, odom=odom, timer=timer)
+    torch.cuda.synchronize()
+    return res, timer, time.perf_counter() - t0
+
+
+def anchor_passes(cfg, scans, poses) -> list:
+    """The first anchor group of each level of the mission's sweep, at
+    ``poses``, recorded pass by pass where the matcher would launch the
+    correlative kernel (the plain version answers): [(label, the kernel's
+    arguments)]."""
+    dev = scans.device
+    T = poses.shape[0]
+    ocfg = cfg.offline
+    store_pts = torch.as_tensor(offline.laser_points(
+        scans.ranges.cpu().numpy(), scans.valid.cpu().numpy(),
+        scans.angles.cpu().numpy()), device=dev)
+    passes = []
+    for level, matcher, span, gap, step in offline.anchor_levels(cfg, T,
+                                                                 dev):
+        lane_ts = np.arange(span, T, step)[:ocfg.anchor_lanes]
+        group = offline.anchor_group(lane_ts, span, gap, ocfg.anchor_scans,
+                                     ocfg.anchor_lanes, poses)
+        calls = []
+
+        def recording(*args):
+            calls.append(args)
+            return corr.sum_windows(*args)
+
+        with patched(corr_response, "responses_sliced", recording):
+            matcher.match_anchors_store_async(store_pts, scans.valid, *group)
+        if len(calls) != 2:
+            raise AssertionError(f"anchor group: {len(calls)} response "
+                                 "passes recorded, not a coarse and a fine")
+        name = "long" if level else "short"
+        passes += [(f"correlative anchor {name} {kind}", args)
+                   for kind, args in zip(("coarse", "fine"), calls)]
+    if len(passes) != 4:
+        raise AssertionError(f"{len(passes)} anchor passes, not 4")
+    return passes
+
+
+def phase_outdoor_main(dev) -> dict:
+    """The outdoor offline mission at full width, with the launch counters
+    zeroed first: a warm-up on the recipe's first 600 scans (under the
+    drift-control route: no skip edge, no anchor), then one timed run of
+    the 3,234 scans through ``offline_slam``. Its wall and scans/s, the
+    stage timer, the skip edges, anchors and loops accepted, the route of
+    the solves, the chain and final ATE; then the correlative kernel int32
+    for int32 against its plain version on one anchor group of each
+    level, both passes, at the final poses. Returns the run's launches."""
+    cfg, scans, odom, gt = outdoor_recipe(dev, OUTDOOR_WARM_SCANS)
+    outdoor_run(cfg, scans, odom)
+    cfg, scans, odom, gt = outdoor_recipe(dev)
+    T = len(gt)
+    _dispatch.reset_launches()
+    res, timer, wall = outdoor_run(cfg, scans, odom)
+    launches = dict(_dispatch.LAUNCHES)
+    skips = res.skip_edges
+    route = _route(res.solver.num_nodes, res.solver.num_edges, dev,
+                   res.solver.cfg, res.solver._band_spec)
+    lm = {k: launches[k] for k in ("pcg_lm", "cr_lm", "cr_stream")}
+    ate_chain = float(ate_rmse(res.chain_poses, gt))
+    ate = float(ate_rmse(res.poses, gt))
+    found = {"skip edges": skips, "anchors": res.anchors_accepted,
+             "loops": len(res.loops)}
+    print(f"outdoor main path: scans={T} route "
+          f"{float(np.sum(np.hypot(*res.chain_rels[:, :2].T))):.1f} m wall "
+          f"{wall:.2f} s ({T / wall:.1f} scans/s; one run after a "
+          f"{OUTDOOR_WARM_SCANS}-scan warm-up) skip edges {skips} anchors "
+          f"{res.anchors_accepted}/{res.anchors_tried} loops "
+          f"{len(res.loops)} candidates {res.candidates_tried} solves "
+          f"{timer.counts['solve']} (route of the final graph {route}; LM "
+          f"kernel launches {lm}) ATE chain {ate_chain:.5f} m final "
+          f"{ate:.5f} m (reference 0.005 m, bar {OUTDOOR_ATE_MAX} m); "
+          f"launches {launches}", flush=True)
+    print("outdoor stage timer:\n" + timer.report(), flush=True)
+    if not np.all(np.isfinite(res.poses)) or res.poses.shape != (T, 3):
+        raise AssertionError("outdoor poses are not finite (T, 3)")
+    if not (ate <= OUTDOOR_ATE_MAX and ate < ate_chain):
+        raise AssertionError(f"outdoor ATE {ate:.5f} m: above "
+                             f"{OUTDOOR_ATE_MAX} m or the chain's")
+    for what, least in OUTDOOR_MIN.items():
+        if found[what] < least:
+            raise AssertionError(f"outdoor: {found[what]} {what}, fewer "
+                                 f"than {least}")
+    if not (launches["plicp_fused"] and launches["correlative_response"]):
+        raise AssertionError("the outdoor run did not launch the PL-ICP and "
+                             "correlative kernels")
+    for label, args in anchor_passes(cfg, scans, res.poses):
+        response_compare(label, *args, reps=(20, 1))
+    return launches
+
+
 # --- the lesson front-ends and the NN kernel ------------------------------
 
 
@@ -1962,6 +2171,29 @@ def phase_nn(dev) -> dict:
         if not (torch.equal(idx == 360, nan_rows) and bool(nan_rows.any())):
             raise AssertionError(f"{label}: index M not exactly on the NaN "
                                  "rows")
+    # past one staged chunk of 4,096 targets: M = 5,000 (2 chunks) and
+    # 12,345 (4), the second chunk a copy of the first (the first copy
+    # wins across chunks), and the NaN rule with a NaN target and a NaN
+    # source in the third chunk's pairs
+    for M in (5000, 12345):
+        t_ = pts(3, M, scale=10.0)
+        t_[:, 4096:min(M, 8192)] = t_[:, :min(M, 8192) - 4096]
+        v_ = flags(3, M)
+        v_[:, 4096:min(M, 8192)] = v_[:, :min(M, 8192) - 4096]
+        s_ = pts(3, 400, scale=10.0)
+        _o, idx = nn_compare(f"edge nn M = {M:,}, chunks of targets", s_,
+                             t_, v_)
+        in_copy = (idx >= 4096) & (idx < 8192)
+        if bool(in_copy.any()):
+            raise AssertionError(f"edge nn M = {M:,}: a later copy won")
+        t_[1, M - 3, 0] = float("nan")
+        s_[2, ::9, 1] = float("nan")
+        _o, idx = nn_compare(f"edge nn M = {M:,} NaN", s_, t_, v_)
+        nan_rows = (torch.isnan(s_).any(-1)
+                    | torch.isnan(t_).any(-1).any(-1)[:, None])
+        if not (torch.equal(idx == M, nan_rows) and bool(nan_rows.any())):
+            raise AssertionError(f"edge nn M = {M:,} NaN: index M not "
+                                 "exactly on the NaN rows")
     return odo
 
 
@@ -2592,6 +2824,8 @@ def main() -> None:
     clock("correlative kernel")
     karto_launches = phase_karto_main(dev, kcfg, kscans, kodom, kgt)
     clock("online Karto")
+    outdoor_launches = phase_outdoor_main(dev)
+    clock("outdoor mission")
     nn = phase_nn(dev)
     clock("NN kernel")
     nn_launches = phase_lesson_main(dev)
@@ -2604,7 +2838,8 @@ def main() -> None:
         {"name": "plicp_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/plicp_fused.cu",
          "replaces": "tpu_slam/ops/pallas/plicp_fused.py:585",
-         "launches": launches["plicp_fused"], **plicp},
+         "launches": launches["plicp_fused"]
+         + outdoor_launches["plicp_fused"], **plicp},
         {"name": "cr_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_lm.cu",
          "replaces": "tpu_slam/solver/pallas_cr_lm.py:573",
@@ -2624,7 +2859,8 @@ def main() -> None:
         {"name": "correlative_response", "route": "cuda",
          "source": "tpu_slam_torch/csrc/correlative_response.cu",
          "replaces": "tpu_slam/ops/pallas/correlative_response.py:160",
-         "launches": karto_launches["correlative_response"], **resp},
+         "launches": karto_launches["correlative_response"]
+         + outdoor_launches["correlative_response"], **resp},
         {"name": "nn", "route": "cuda", "source": "tpu_slam_torch/csrc/nn.cu",
          "replaces": "tpu_slam/ops/pallas/nn.py:50",
          "launches": nn_launches, **nn},

@@ -159,9 +159,7 @@ def sweep_plicp(dev) -> None:
             B, N, _ = pairs[0].shape
             M = pairs[2].shape[1]
             pick = chosen(B, N, M, sms)
-            shapes = [cplicp.PLICPGeometry(t, -(-N // t),
-                                           cplicp.smem_bytes(
-                                               N, M, t, -(-N // t)))
+            shapes = [cplicp.shape_at(N, M, t, -(-N // t))
                       for t in PLICP_THREADS]
             for shape in shapes:
                 cplicp.plicp_geometry = lambda *_a, shape=shape: shape

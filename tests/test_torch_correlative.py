@@ -475,6 +475,9 @@ def test_match_chains_store_is_equal(match_setup):  # noqa: F811
     got = pend.resolve()
     _assert_same_match(got, ref)
     assert (got.response[3:] == 0.0).all()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.match_anchors_store_async(_t(store_pts), _t(store_valid), idx,
-                                     poses, np.zeros(6), poses[:, 0])
+    # the multi-query form, every lane's query the store row of scan b at
+    # the same centre, answers as the shared-query form, bit for bit
+    anchors = T.to_host(tm.match_anchors_store_async(
+        _t(store_pts), _t(store_valid), idx, poses, np.ones(6),
+        np.repeat(np.asarray(guess)[None], 6, 0), do_penalize=False))
+    np.testing.assert_array_equal(anchors[:3], T.to_host(pend._out)[:3])

@@ -58,6 +58,39 @@ def test_yaml_config_crosses(path):
         dataclasses.asdict(ref)
 
 
+def test_shipped_presets_are_copies():
+    """The port ships the reference's preset files unchanged."""
+    ours = sorted((pathlib.Path(tconfig.__file__).parent / "configs").glob(
+        "*.yaml"))
+    assert [p.name for p in ours] == [p.name for p in YAMLS]
+    for mine, ref in zip(ours, YAMLS):
+        assert mine.read_bytes() == ref.read_bytes()
+
+
+def test_outdoor_recipe_is_the_benchmarks():
+    """benchmarks/bench_outdoor.py's world and route, copied onto the
+    port's simulator, are bit-equal to the benchmark's."""
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "benchmarks"))
+    try:
+        import bench_outdoor
+    finally:
+        sys.path.pop(0)
+    for arm, street, seed in ((80.0, 16.0, 4), (16.0, 4.0, 4)):
+        np.testing.assert_array_equal(
+            tsim.outdoor_world(arm=arm, street=street, seed=seed).segments,
+            bench_outdoor.outdoor_world(arm=arm, street=street,
+                                        seed=seed).segments)
+    h, wi = 40.0, 24.0
+    m = (h + wi) / 2
+    lap = [[m, -m], [m, m], [-m, m], [-m, -m]]
+    wps = np.array([[-m, -m]] + lap + [[0.0, -m]])
+    want = jsim.waypoint_trajectory(wps, speed=0.9, dt=0.1)
+    np.testing.assert_array_equal(tsim.outdoor_lap(), want)
+    assert len(want) == 3234
+
+
 def test_section_configs_cross():
     ref = jconfig.default_config()
     for f in dataclasses.fields(ref):

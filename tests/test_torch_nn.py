@@ -104,14 +104,22 @@ def _model_case(name):
     if name in CASES:
         return _case(name)
     rng = np.random.default_rng(8)
-    B, N, M = {"m_below_g": (3, 30, 5)}[name]
+    B, N, M = {"m_below_g": (3, 30, 5), "nan_chunked": (3, 12, 12345)}[name]
     src = rng.normal(0, 3, (B, N, 2)).astype(np.float32)
     tgt = rng.normal(0, 3, (B, M, 2)).astype(np.float32)
     tv = rng.random((B, M)) > 0.2
+    if name == "nan_chunked":
+        # past one staged chunk of targets: the second chunk repeats the
+        # first (the first copy wins across chunks), and pair 2 has a NaN
+        # target in the third chunk
+        c = cuda_nn.MAX_TARGETS
+        tgt[:, c:2 * c] = tgt[:, :c]
+        tv[:, c:2 * c] = tv[:, :c]
+        tgt[2, 2 * c + 5, 0] = np.nan
     return src, tgt, tv
 
 
-MODEL_EXTRA = ["m_below_g"]
+MODEL_EXTRA = ["m_below_g", "nan_chunked"]
 
 
 def _lane_split_model(src, tgt, tv, G):
@@ -121,7 +129,9 @@ def _lane_split_model(src, tgt, tv, G):
     flagged lane taking (NaN, M); then the lanes merge (d2, index) in the
     kernel's xor butterfly (offsets G/2, …, 1): a NaN lane wins, else the
     smaller d2, on equal d2 the smaller index. The distances are the
-    kernel's: fma(dx, dx, dy·dy) + (0 or 1e12)."""
+    kernel's: fma(dx, dx, dy·dy) + (0 or 1e12). The kernel's chunks of
+    staged targets, whole multiples of G, leave each lane's share and its
+    order as they are."""
     dx = src[..., :, None, 0] - tgt[..., None, :, 0]
     dy = src[..., :, None, 1] - tgt[..., None, :, 1]
     pen = torch.where(tv, torch.tensor(0.0), torch.tensor(1e12))
@@ -178,6 +188,9 @@ GEOMETRY_SHAPES = [
     (2, 1000, 4096), (2, 360, 360), (2, 90, 180), (2, 64, 300), (1, 5, 7),
     (1, 100, 37), (400, 361, 50), (800, 361, 50), (199, 360, 360),
     (1, 1, 1), (1, 1_000_000, 10), (512, 360, 360), (1, 360, 4096),
+    # past one staged chunk of targets, and many source tiles
+    (2, 360, 4097), (1, 1081, 5000), (2, 4097, 12345), (1, 12345, 360),
+    (120, 360, 5000), (1, 1, 12345),
 ]
 
 
@@ -203,9 +216,17 @@ def test_nn_geometry_covers_every_source_and_target_once(shape, sms):
     # the lanes' strided shares cover the targets once (lanes past M: none)
     shares = [j for g in range(G) for j in range(g, M, G)]
     assert sorted(shares) == list(range(M))
-    # the staged targets fit a block, at the cap too
-    assert geo.smem == 16 * M
-    assert 16 * cuda_nn.MAX_TARGETS <= _build.SMEM_PER_BLOCK
+    # the targets staged chunk after chunk cover them once, every chunk
+    # but the last a whole multiple of the lanes; a chunk fits a block
+    mc = geo.targets
+    assert mc == min(M, cuda_nn.MAX_TARGETS) and geo.chunks == -(-M // mc)
+    staged = [k0 + j for k0 in range(0, geo.chunks * mc, mc)
+              for j in range(min(mc, M - k0))]
+    assert staged == list(range(M))
+    assert geo.chunks == 1 or mc % 32 == 0
+    assert geo.smem == 16 * mc <= _build.SMEM_PER_BLOCK
+    if M <= cuda_nn.MAX_TARGETS:  # one chunk: the geometry of before
+        assert geo.smem == 16 * M and geo.chunks == 1
     # G doubles only while the card is not yet full
     fill = sms * cuda_nn.LANES_PER_SM
     assert G == 1 or B * N * G // 2 < fill
@@ -224,7 +245,9 @@ def test_nn_kernel_constants_are_the_wrappers():
 
     assert const("MAX_THREADS") == cuda_nn.MAX_THREADS
     assert const("MAX_LANES") == cuda_nn.MAX_LANES
-    assert len(_build.SIGNATURES["nn"][1]) == 13
+    assert len(_build.SIGNATURES["nn"][1]) == 14
+    # the targets chunk by chunk: a barrier before each restage and after
+    assert src.count("__syncthreads()") == 2
 
 
 @pytest.mark.parametrize("name", ["random", "n_not_m", "far_sources"])

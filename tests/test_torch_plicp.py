@@ -21,6 +21,7 @@ from tpu_slam.parallel import distributed_step as jds
 from tpu_slam_torch import _build, _dispatch
 from tpu_slam_torch import config as tconfig
 from tpu_slam_torch.ops import matching as tmatch
+from tpu_slam_torch.ops.cuda import plicp_fused as cp
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
 from tpu_slam_torch.ops.plicp import plicp_match
 from tpu_slam_torch.parallel import distributed_step as tds
@@ -408,15 +409,18 @@ def test_radix_selection_equals_masked_quantiles(kind, n):
         assert torch.equal(got, want)
 
 
-def _pruned_nn_model(src, tgt, tv, seed, tile=32, slack=4e-6):
+def _pruned_nn_model(src, tgt, tv, seed, tile=32, slack=4e-6,
+                     chunk=cp.MAX_TARGETS):
     """csrc/plicp_fused.cu's NN, in plain float32 torch, one source at a
     time (the kernel's warp scans a tile when any lane needs it, which
     only adds targets): d = valid ? dx² + dy² : BIG; the bound from target
-    0 and the 8 targets around ``seed``; target 0, then the tiles in
-    order, skipping a tile whose box (of its valid targets, or BIG where
-    it holds an invalid one) lies beyond the bound and the best so far;
-    a strict < within. Returns the picks and how many tiles were
-    skipped."""
+    0 and the 8 targets of the first chunk around ``seed``; target 0, then
+    the staged chunks
+    of ``chunk`` targets in order and the tiles of each in order, skipping
+    a tile whose box (of its valid targets, or BIG where it holds an
+    invalid one) lies beyond the bound and the best so far; a strict <
+    within, the best carried across chunks. Returns the picks and how
+    many tiles were skipped."""
     M = tgt.shape[0]
     dx = src[:, None, 0] - tgt[None, :, 0]
     dy = src[:, None, 1] - tgt[None, :, 1]
@@ -424,8 +428,10 @@ def _pruned_nn_model(src, tgt, tv, seed, tile=32, slack=4e-6):
                     torch.tensor(tmatch.BIG, dtype=torch.float32))
     inf = float("inf")
     boxes = []
-    for t0 in range(0, M, tile):
-        sl = slice(t0, min(t0 + tile, M))
+    starts = [k0 + t for k0 in range(0, M, chunk)
+              for t in range(0, min(chunk, M - k0), tile)]
+    for t0 in starts:
+        sl = slice(t0, min(t0 + tile, M, t0 - t0 % chunk + chunk))
         v = tv[sl]
         pts = tgt[sl][v]
         lo = pts.min(0).values if len(pts) else torch.tensor([inf, inf])
@@ -433,17 +439,19 @@ def _pruned_nn_model(src, tgt, tv, seed, tile=32, slack=4e-6):
         boxes.append((lo, hi, tmatch.BIG if bool((~v).any()) else inf))
     picks, skipped = [], 0
     for i in range(src.shape[0]):
-        j0 = min(max(int(seed[i]) - 4, 0), max(M - 8, 0))
-        bound = torch.minimum(d[i, 0], d[i, j0:j0 + 8].min())
+        m0 = min(M, chunk)
+        j0 = min(max(int(seed[i]) - 4, 0), max(m0 - 8, 0))
+        bound = torch.minimum(d[i, 0], d[i, j0:min(j0 + 8, m0)].min())
         best, j1 = d[i, 0], 0
-        for k, (lo, hi, inv) in enumerate(boxes):
+        for t0, (lo, hi, inv) in zip(starts, boxes):
             g = torch.clamp(torch.maximum(lo - src[i], src[i] - hi), min=0)
             lb = torch.minimum(g[0] * g[0] + g[1] * g[1],
                                torch.tensor(inv, dtype=torch.float32))
             if lb * (1 - slack) > torch.minimum(bound, best) + 1e-30:
                 skipped += 1
                 continue
-            for j in range(max(k * tile, 1), min(k * tile + tile, M)):
+            end = min(t0 + tile, M, t0 - t0 % chunk + chunk)
+            for j in range(max(t0, 1), end):
                 if d[i, j] < best:
                     best, j1 = d[i, j], j
         picks.append(j1)
@@ -451,7 +459,7 @@ def _pruned_nn_model(src, tgt, tv, seed, tile=32, slack=4e-6):
 
 
 @pytest.mark.parametrize("case", ["scan_pair", "invalid_tiles", "far",
-                                  "duplicates", "no_valid"])
+                                  "duplicates", "no_valid", "chunks"])
 def test_pruned_nn_picks_the_exhaustive_first_minimum(case):
     rng = np.random.default_rng(3)
     src, _sv, tgt, tv = (torch.as_tensor(a[0]) for a in _pairs(1))
@@ -470,79 +478,133 @@ def test_pruned_nn_picks_the_exhaustive_first_minimum(case):
         src = torch.round(src * 4) / 4
     elif case == "no_valid":
         tv = torch.zeros_like(tv)
+    chunk = cp.MAX_TARGETS
+    if case == "chunks":
+        # staged chunks of 1,000 targets (the kernel's are MAX_TARGETS):
+        # the scan repeated 14 times, the last copies 0.01 m off, so the
+        # first copy wins across chunks except where a later one is nearer
+        chunk = 1000
+        M = tgt.shape[0]
+        tgt = torch.cat([tgt + (0.01 * (k // 7)) for k in range(14)])
+        tv = tv.repeat(14)
+        src = src[::9]
+        seed = (torch.arange(src.shape[0]) * 14 * M) // src.shape[0]
     dx = src[:, None, 0] - tgt[None, :, 0]
     dy = src[:, None, 1] - tgt[None, :, 1]
     d = torch.where(tv[None, :], dx * dx + dy * dy,
                     torch.tensor(tmatch.BIG, dtype=torch.float32))
     want = torch.argmin(d, dim=-1)  # the first index of the minimum
-    got, skipped = _pruned_nn_model(src, tgt, tv, seed)
+    got, skipped = _pruned_nn_model(src, tgt, tv, seed, chunk=chunk)
     assert torch.equal(got, want)
+    if case == "chunks":
+        assert bool((want >= chunk).any()) and bool((want < M).any())
     if case == "scan_pair":  # the pruning does skip most tiles
         assert skipped > 0.5 * src.shape[0] * -(-tgt.shape[0] // 32)
 
 
-PLICP_SHAPES = [  # chip_smoke's batches, its edge case, the wrapper's limits
+PLICP_SHAPES = [  # chip_smoke's batches, its edge cases, one chunk's ends
     (512, 360, 360), (2048, 360, 360), (5760, 360, 360), (6, 100, 130),
     (600, 1, 360), (600, 1024, 360), (600, 360, 1), (600, 360, 4096),
     (1, 1024, 4096), (1, 1, 1),
-]
+] + [(2, N, M) for N in (360, 1081, 4097, 12345)  # past one chunk
+     for M in (360, 4097, 5000, 12345)] + [(600, 1081, 1081), (1, 1025, 1)]
 
 
 @pytest.mark.parametrize("shape", PLICP_SHAPES)
 def test_plicp_geometry_covers_every_source_once(shape):
-    from tpu_slam_torch.ops.cuda import plicp_fused as cp
-
     B, N, M = shape
     sms = 132
     geo = cp.plicp_geometry(B, N, M, sms)
-    T, S = geo.threads, geo.sources
+    T, S, C = geo.threads, geo.sources, geo.source_chunks
     assert 32 <= T <= cp.MAX_THREADS and T % 32 == 0
     assert 1 <= S <= cp.MAX_SOURCES and T <= cp.max_threads(S)
-    # source s·T + t on thread t: every source once, no thread idle in
-    # every slot
-    slots = [s * T + t for s in range(S) for t in range(T)]
+    assert T * S <= cp.MAX_PASS and C == -(-N // (T * S))
+    # source (c·S + s)·T + t on thread t: every source once, no chunk
+    # without a source, no thread idle in every slot of one chunk
+    slots = [(c * S + s) * T + t
+             for c in range(C) for s in range(S) for t in range(T)]
     assert sorted(i for i in slots if i < N) == list(range(N))
-    assert (S - 1) * T < N
-    assert geo.smem == cp.smem_bytes(N, M, T, S)
+    assert (C - 1) * S * T < N
+    assert C > 1 or (S - 1) * T < N
+    # the targets staged chunk after chunk, whole tiles, every target once
+    mc, KC = geo.targets, geo.target_chunks
+    assert mc == min(M, cp.MAX_TARGETS) and KC == -(-M // mc)
+    assert KC == 1 or mc % cp.TILE == 0
+    staged = [k0 + j for k0 in range(0, KC * mc, mc)
+              for j in range(min(mc, M - k0))]
+    assert staged == list(range(M))
+    # the groups of 32 sources that the GN sums add in source order
+    groups = C * S * (T // 32)
+    assert 32 * groups >= N
+    assert geo.smem == cp.smem_bytes(N, mc, T, S, C,
+                                     lists=not geo.lists_global)
     assert geo.smem <= _build.SMEM_PER_BLOCK
+    # device scratch: the records of every source where there are chunks,
+    # then the lists where they do not fit shared memory
+    want = 0
+    if C > 1 or KC > 1 or geo.lists_global:
+        want = cp.RECORD_FLOATS * N + (
+            cp.list_floats(N, T, S, C) if geo.lists_global else 0)
+    assert geo.scratch == 4 * -(-want // 4)
+    if geo.lists_global:
+        assert cp.smem_bytes(N, mc, T, S, C) > _build.SMEM_PER_BLOCK
+    if N <= cp.MAX_PASS and M <= cp.MAX_TARGETS:
+        # one chunk of each: the geometry of the kernel before chunks
+        assert (C, KC, geo.lists_global, geo.scratch) == (1, 1, False, 0)
+        assert geo.smem == cp.smem_bytes(N, M, T, S)
     if B >= sms and N == 360:
         assert S == cp.SOURCES_PER_THREAD
     if B < sms:  # fewer pairs than SMs: one source a thread
-        assert S == 1
+        assert S == 1 or N > cp.MAX_PASS
 
 
 def test_plicp_kernel_constants_are_the_wrappers():
     import re
-
-    from tpu_slam_torch.ops.cuda import plicp_fused as cp
 
     src = (_build.CSRC / "plicp_fused.cu").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    for name in ("MAX_THREADS", "MAX_SOURCES", "NV1", "NV2", "TILE",
-                 "BINS"):
+    for name in ("MAX_THREADS", "MAX_SOURCES", "PAIR_THREADS", "NV1", "NV2",
+                 "TILE", "BINS"):
         assert const(name) == getattr(cp, name), name
     instances = [int(k) for k in re.findall(r"PLICP_CASE\((\d+)\)", src)]
     assert sorted(set(instances)) == list(range(1, cp.MAX_SOURCES + 1))
-    # the staging barrier, then the design's barriers a round
-    assert src.count("__syncthreads()") == 1 + cp.BARRIERS_PER_ROUND
+    # the staging barrier, the design's barriers a round, the two around
+    # each chunk of targets staged after the first and the one before the
+    # first is staged again
+    assert src.count("__syncthreads()") == (
+        1 + cp.BARRIERS_PER_ROUND + cp.STAGING_BARRIERS)
     # one design: no bitonic sort, and no switch to another NN or selection
     assert "bitonic" not in src and "design" not in src
-    assert len(_build.SIGNATURES["plicp_fused"][1]) == 22
+    assert len(_build.SIGNATURES["plicp_fused"][1]) == 26
 
 
 def test_plicp_wrapper_rejects_beyond_its_limits():
-    from tpu_slam_torch.ops.cuda import plicp_fused as cp
-
+    """No beam on either side is outside the kernel's range; the old
+    limits (1,024 sources, 4,096 targets) are not: they reach the device
+    check, which a tensor off the card fails."""
     cfg = tconfig.PLICPConfig()
     meta = torch.device("meta")
-    for N, M in ((cp.MAX_BEAMS + 1, 360), (360, cp.MAX_TARGETS + 1)):
-        z = torch.zeros
+    z = torch.zeros
+
+    def launch(N, M):
+        cp.launch_plicp(z((2, N, 2), device=meta),
+                        z((2, N), dtype=torch.bool, device=meta),
+                        z((2, M, 2), device=meta),
+                        z((2, M), dtype=torch.bool, device=meta), cfg,
+                        z((2, 3), device=meta))
+
+    for N, M in ((0, 360), (360, 0)):
         with pytest.raises(ValueError, match="outside"):
-            cp.launch_plicp(z((2, N, 2), device=meta),
-                            z((2, N), dtype=torch.bool, device=meta),
-                            z((2, M, 2), device=meta),
-                            z((2, M), dtype=torch.bool, device=meta), cfg,
-                            z((2, 3), device=meta))
+            launch(N, M)
+    for N, M in ((1025, 360), (360, 4097), (12345, 12345)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(N, M)
+    with pytest.raises(ValueError, match="expected"):  # a malformed shape
+        cp.launch_plicp(z((2, 5, 3), device=meta),
+                        z((2, 5), dtype=torch.bool, device=meta),
+                        z((2, 7, 2), device=meta),
+                        z((2, 7), dtype=torch.bool, device=meta), cfg,
+                        z((2, 3), device=meta))

@@ -39,9 +39,11 @@ SIGNATURES = {
         "plicp_fused_launch",
         # src, src_valid, tgt, tgt_valid, init, pose, stats, H,
         # B, N, M, rounds, max_d2, eps_xy, eps_th, q_perc, q_adap,
-        # adap_mult, threads, sources a thread, smem, stream
+        # adap_mult, threads, sources a thread, smem, targets a chunk,
+        # lists_global, scratch, scratch floats a pair, stream
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-         _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _VP],
+         _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _VP,
+         _I, _VP],
     ),
     "cr_lm": (
         "cr_lm_launch",
@@ -74,14 +76,14 @@ SIGNATURES = {
     "correlative_response": (
         "correlative_response_launch",
         # grid, ys, xs, valid, out, C, H, W, A, N, nx, ny, stride, chunk,
-        # stream
-        [_VP] * 5 + [_I] * 9 + [_VP],
+        # valid's lane stride, stream
+        [_VP] * 5 + [_I] * 10 + [_VP],
     ),
     "nn": (
         "nn_launch",
         # src, tgt, tgt_valid, idx, d2, B, N, M, lanes, threads, tiles,
-        # smem, stream
-        [_VP] * 5 + [_I] * 7 + [_VP],
+        # smem, targets a chunk, stream
+        [_VP] * 5 + [_I] * 8 + [_VP],
     ),
 }
 

@@ -1,8 +1,9 @@
 """Typed configuration tree with the reference defaults — the port's own
 copy of ``tpu_slam/config.py``, with every dataclass, field and default
-unchanged, so that the port imports nothing of the JAX package. (The
-shipped YAML presets stay with the JAX package; ``config_from_yaml``
-loads any such file.)
+unchanged, so that the port imports nothing of the JAX package. The
+shipped YAML presets are copied too (``tpu_slam_torch/configs/``), and
+``preset(name)`` loads them from there; ``config_from_yaml`` loads any
+such file.
 
 
 One dataclass config tree replacing the reference's three config tiers
@@ -484,3 +485,29 @@ def config_from_yaml(path: str, base: Optional[SLAMConfig] = None) -> SLAMConfig
         d = yaml.safe_load(f) or {}
     return config_from_dict(d, base)
 
+
+def preset(name: str) -> SLAMConfig:
+    """Load a shipped configuration preset by name.
+
+    Mirrors the reference's launch-selectable YAML presets
+    (`lesson6/config/mapper_params.yaml` indoor /
+    `mapper_params_outdoor.yaml` for the outdoor bag):
+
+        cfg = preset("karto_outdoor")
+    """
+    import os
+
+    path = os.path.join(
+        os.path.dirname(__file__), "configs", f"{name}.yaml"
+    )
+    if not os.path.exists(path):
+        import glob
+
+        avail = sorted(
+            os.path.splitext(os.path.basename(p))[0]
+            for p in glob.glob(os.path.join(
+                os.path.dirname(__file__), "configs", "*.yaml"
+            ))
+        )
+        raise ValueError(f"unknown preset {name!r}; available: {avail}")
+    return config_from_yaml(path)

@@ -7,8 +7,10 @@
 // version: tpu_slam_torch/ops/correlative.py::sum_windows.
 //
 // What it computes: out[c, a, y * nx + x] = sum over beams n with
-// valid[n] of grid[c, ys[c,a,n] + y * stride, xs[c,a,n] + x * stride],
-// int32. The window starts (ys, xs) come from the caller (the rotated
+// valid[c * vstride + n] of grid[c, ys[c,a,n] + y * stride, xs[c,a,n] +
+// x * stride], int32: the lanes share one scan's beam flags (vstride 0,
+// a chain group) or each has its own (vstride N, an anchor group). The
+// window starts (ys, xs) come from the caller (the rotated
 // beam offsets rounded half away from zero and clamped to
 // [0, dim - span]), so this kernel does no trigonometry: a one-ulp
 // difference in a cosine would move a beam to another cell. Integer sums
@@ -47,10 +49,10 @@ __global__ void correlative_response_kernel(
     const uint8_t* __restrict__ grid,  // (C, H, W)
     const int* __restrict__ ys,        // (C, A, N)
     const int* __restrict__ xs,        // (C, A, N)
-    const uint8_t* __restrict__ valid, // (N,)
+    const uint8_t* __restrict__ valid, // (C, N), lane stride vstride
     int* __restrict__ out,             // (C, A, ny * nx), zeroed
     int H, int W, int A, int N, int nx, int ny, int stride, int chunk,
-    int nsplit) {
+    int nsplit, int vstride) {
   __shared__ int origin[MAX_CHUNK];
   const int a = blockIdx.y;
   const int c = blockIdx.z / nsplit;
@@ -59,12 +61,13 @@ __global__ void correlative_response_kernel(
   const int ymax = H - ((ny - 1) * stride + 1);
   const int xmax = W - ((nx - 1) * stride + 1);
   const size_t row = ((size_t)c * A + a) * N;
+  const uint8_t* v = valid + (size_t)c * vstride;
   for (int n = n0 + threadIdx.x; n < n1; n += blockDim.x) {
     // the caller's starts are clamped already; clamping again keeps
     // every read inside the lane's grid whatever the caller passes
     const int y = min(max(ys[row + n], 0), ymax);
     const int x = min(max(xs[row + n], 0), xmax);
-    origin[n - n0] = valid[n] ? y * W + x : -1;
+    origin[n - n0] = v[n] ? y * W + x : -1;
   }
   __syncthreads();
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -83,16 +86,17 @@ __global__ void correlative_response_kernel(
 
 }  // namespace
 
-// grid (C, H, W) uint8, ys/xs (C, A, N) int32, valid (N,) bool as bytes,
-// out (C, A, ny * nx) int32 zeroed by the caller; chunk = beams per block
+// grid (C, H, W) uint8, ys/xs (C, A, N) int32, valid (C, N) bool as
+// bytes, lane c's at valid + c * vstride (0: one scan's, shared), out
+// (C, A, ny * nx) int32 zeroed by the caller; chunk = beams per block
 // (1..MAX_CHUNK). Returns the cudaError_t of the launch.
 extern "C" int correlative_response_launch(
     const void* grid, const void* ys, const void* xs, const void* valid,
     void* out, int C, int H, int W, int A, int N, int nx, int ny, int stride,
-    int chunk, void* stream) {
+    int chunk, int vstride, void* stream) {
   if (C < 1 || A < 1 || N < 1 || nx < 1 || ny < 1 || stride < 1 ||
       chunk < 1 || chunk > MAX_CHUNK || (nx - 1) * stride + 1 > W ||
-      (ny - 1) * stride + 1 > H)
+      (ny - 1) * stride + 1 > H || vstride < 0)
     return (int)cudaErrorInvalidValue;
   const int ncand = nx * ny;
   int threads = ((ncand + 31) / 32) * 32;
@@ -102,6 +106,6 @@ extern "C" int correlative_response_launch(
   correlative_response_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)grid, (const int*)ys, (const int*)xs,
       (const uint8_t*)valid, (int*)out, H, W, A, N, nx, ny, stride, chunk,
-      nsplit);
+      nsplit, vstride);
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,12 @@
 // Design (ops/cuda/nn.py::nn_geometry chooses the shape): grid (B, tiles),
 // a block per tile of one pair's sources, a source per group of G lanes
 // (G a power of two <= 32, doubled while B N G lanes do not fill the
-// card). The block stages the pair's M targets in shared memory once,
-// packed as float4 (x, y, penalty, 0) with the penalty already 0 or 1e12,
-// so one load feeds a distance. Lane g scans targets g, g + G, g + 2G, ...
+// card). The block stages the pair's targets in shared memory, packed as
+// float4 (x, y, penalty, 0) with the penalty already 0 or 1e12, so one
+// load feeds a distance: all M at once up to 4,096 (64 KB), past that in
+// chunks of 4,096 in index order, a barrier before and after each
+// restage, the lane's minimum, its index and its NaN flag carried across
+// them. Lane g scans targets g, g + G, g + 2G, ...
 // (consecutive lanes on consecutive float4s, no bank conflict), keeps the
 // first index of its minimum with a strict <, and the group merges
 // (d2, index) lexicographically with warp shuffles: the smaller d2 wins,
@@ -52,19 +55,18 @@ constexpr int QNAN = 0x7fc00000;  // the quiet NaN a NaN row gets
 
 // Block (blockIdx.x = pair b, blockIdx.y = tile): `tile` = blockDim / G
 // sources of pair b from blockIdx.y * tile on; thread t serves source
-// t / G as lane t % G.
+// t / G as lane t % G. The pair's targets are staged `mc` at a time (mc a
+// multiple of 32 when there is more than one chunk), chunk after chunk in
+// index order.
 __global__ void __launch_bounds__(MAX_THREADS)
     nn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
               const uint8_t* __restrict__ tgt_valid,
               int64_t* __restrict__ idx_out, float* __restrict__ d2_out,
-              int N, int M, int G) {
+              int N, int M, int G, int mc) {
   extern __shared__ float4 tg[];
   const int64_t b = blockIdx.x;
   const float* t = tgt + b * 2 * (int64_t)M;
   const uint8_t* v = tgt_valid + b * (int64_t)M;
-  for (int j = threadIdx.x; j < M; j += blockDim.x)
-    tg[j] = make_float4(t[2 * j], t[2 * j + 1], v[j] ? 0.f : BIG, 0.f);
-  __syncthreads();
   const int g = threadIdx.x & (G - 1);
   const int i = blockIdx.y * (blockDim.x / G) + threadIdx.x / G;
   const int ic = min(i, N - 1);  // past N: a copy, never written
@@ -73,16 +75,26 @@ __global__ void __launch_bounds__(MAX_THREADS)
   float best = __int_as_float(0x7f800000);  // +inf
   int arg = g;
   bool nan = false;
+  for (int k0 = 0; k0 < M; k0 += mc) {
+    const int m = min(mc, M - k0);
+    if (k0 > 0) __syncthreads();  // every lane is done with the last chunk
+    for (int j = threadIdx.x; j < m; j += blockDim.x)
+      tg[j] = make_float4(t[2 * (k0 + j)], t[2 * (k0 + j) + 1],
+                          v[k0 + j] ? 0.f : BIG, 0.f);
+    __syncthreads();
+    // lane g's share, targets g, g + G, ...: mc is a multiple of G, so the
+    // shares of the chunks make one stride and one strict < across them
 #pragma unroll 4
-  for (int j = g; j < M; j += G) {
-    const float4 q = tg[j];
-    const float dx = __fsub_rn(sx, q.x);
-    const float dy = __fsub_rn(sy, q.y);
-    const float d = __fadd_rn(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)), q.z);
-    nan |= d != d;
-    if (d < best) {
-      best = d;
-      arg = j;
+    for (int j = g; j < m; j += G) {
+      const float4 q = tg[j];
+      const float dx = __fsub_rn(sx, q.x);
+      const float dy = __fsub_rn(sy, q.y);
+      const float d = __fadd_rn(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)), q.z);
+      nan |= d != d;
+      if (d < best) {
+        best = d;
+        arg = k0 + j;
+      }
     }
   }
   if (nan) {
@@ -110,18 +122,20 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 // src (B, N, 2) f32, tgt (B, M, 2) f32, tgt_valid (B, M) bool (one byte),
 // idx (B, N) int64, d2 (B, N) f32; all contiguous on one device. `lanes`
-// (G), `threads` a block, `tiles` a pair and `smem` bytes come from
-// ops/cuda/nn.py::nn_geometry. Returns a cudaError_t (0 on success;
-// non-zero when the geometry does not cover the sources).
+// (G), `threads` a block, `tiles` a pair, `smem` bytes and `mc` targets a
+// staged chunk come from ops/cuda/nn.py::nn_geometry. Returns a
+// cudaError_t (0 on success; non-zero when the geometry does not cover
+// the sources or the chunks).
 extern "C" int nn_launch(const void* src, const void* tgt,
                          const void* tgt_valid, void* idx, void* d2, int B,
                          int N, int M, int lanes, int threads, int tiles,
-                         int smem, void* stream) {
+                         int smem, int mc, void* stream) {
   const int G = lanes;
   if (B < 1 || N < 1 || M < 1 || G < 1 || G > MAX_LANES || (G & (G - 1)) ||
       threads < 32 || threads > MAX_THREADS || threads % 32 ||
       tiles < 1 || tiles > 65535 || (int64_t)tiles * (threads / G) < N ||
-      smem < M * (int)sizeof(float4))
+      mc < 1 || (mc < M && mc % MAX_LANES) ||
+      smem < mc * (int)sizeof(float4))
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -130,6 +144,6 @@ extern "C" int nn_launch(const void* src, const void* tgt,
   }
   nn_kernel<<<dim3(B, tiles), threads, smem, (cudaStream_t)stream>>>(
       (const float*)src, (const float*)tgt, (const uint8_t*)tgt_valid,
-      (int64_t*)idx, (float*)d2, N, M, G);
+      (int64_t*)idx, (float*)d2, N, M, G, mc);
   return (int)cudaGetLastError();
 }

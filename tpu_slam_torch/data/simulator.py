@@ -113,6 +113,41 @@ def corridor_loop_world(arm: float = 12.0, width: float = 2.4) -> World:
     return w
 
 
+def outdoor_world(arm: float = 80.0, street: float = 16.0,
+                  seed: int = 0) -> World:
+    """City block: outer walls, inner building block, street clutter
+    (parked boxes near the walls — the outdoor bag's parked cars). A copy
+    of ``benchmarks/bench_outdoor.py::outdoor_world``."""
+    w = corridor_loop_world(arm=arm, width=street)
+    h, wi = arm / 2, arm / 2 - street
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        side = rng.integers(4)
+        along = rng.uniform(-h + 2, h - 2)
+        off = rng.uniform(0.6, 2.2)  # distance from a wall
+        near_outer = rng.random() < 0.5
+        d = (h - off) if near_outer else (wi + off)
+        cx, cy = [(along, d), (d, along), (along, -d), (-d, along)][side]
+        bw, bh = rng.uniform(0.5, 2.2, 2)
+        # keep the driving centerline clear
+        m = (h + wi) / 2
+        if abs(max(abs(cx), abs(cy)) - m) < 2.6:
+            continue
+        w = w.add_box(cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2)
+    return w
+
+
+def outdoor_lap(arm: float = 80.0, street: float = 16.0,
+                laps: int = 1) -> np.ndarray:
+    """``benchmarks/bench_outdoor.py``'s route: the street's centre line
+    around the block ``laps`` times at 0.9 m/s, one scan every 0.1 s."""
+    h, wi = arm / 2, arm / 2 - street
+    m = (h + wi) / 2
+    lap = [[m, -m], [m, m], [-m, m], [-m, -m]]
+    wps = np.array([[-m, -m]] + lap * laps + [[0.0, -m]])
+    return waypoint_trajectory(wps, speed=0.9, dt=0.1)
+
+
 def raycast(world: World, origins: np.ndarray, angles: np.ndarray,
             range_max: float) -> np.ndarray:
     """Exact ray–segment intersection, vectorized over beams.

@@ -4,18 +4,28 @@ calls — port of ``tpu_slam/models/offline.py::offline_slam``.
   1. every consecutive scan pair is matched in ONE batched PL-ICP call
      against a once-uploaded mission scan store (ranges + beam directions),
      with the pose integration in the same call (``make_chain_matcher``);
-  2. loop candidates come from a pose-proximity sweep on the host;
-  3. candidates are matched by multi-start batched PL-ICP, with best-seed
+  2. on routes of ``drift_control_min_route`` or more, skip edges: scan t
+     against t + s for the strides ``skip_strides``, in ONE batched PL-ICP
+     call, gated on inliers, the error gate and the deviation from the
+     chain;
+  3. loop candidates come from a pose-proximity sweep on the host;
+  4. candidates are matched by multi-start batched PL-ICP, with best-seed
      selection and gating on the device (``make_loop_selector``);
-  4. pairwise-consistent loops plus the chain feed the LM pose-graph solve;
-  5. detection → match → solve repeats ``OfflineConfig.rounds`` times.
+  5. pairwise-consistent loops plus the chain (and the skip and anchor
+     edges) feed the LM pose-graph solve;
+  6. detection → match → solve repeats ``OfflineConfig.rounds`` times;
+  7. on those routes, the correlative anchor sweep: every anchor scan
+     re-matched against a submap of its recent past at the current
+     estimates (``CorrelativeMatcher.match_anchors_store_async``, C lanes
+     a group, two levels, a solve between them), alternating with loop
+     re-detection for up to ``macro_rounds`` passes; the anchor edges are
+     dropped before the final solve once ``anchor_drop_min_loops`` loops
+     are accepted.
 
 The device is the device of the scans' tensors. ``corrected_pts`` (for
 instance ``undistort_mission``'s output) replaces the polar→Cartesian
 conversion of the scans. Not ported yet, and raising
-``NotImplementedError`` where they would fire: the drift-control stages of
-routes ≥ ``drift_control_min_route`` (skip edges and correlative anchors)
-and the ``mesh`` form.
+``NotImplementedError``: the ``mesh`` form.
 """
 
 from __future__ import annotations
@@ -28,9 +38,12 @@ import torch
 from tpu_slam_torch import geometry_np as gnp
 from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.data.scan import Scan
+from tpu_slam_torch.ops.correlative import (
+    CorrelativeMatcher, CorrelativeParams, to_host,
+)
 from tpu_slam_torch.ops.undistort import undistort_scan
 from tpu_slam_torch.parallel.distributed_step import (
-    make_chain_matcher, make_loop_selector,
+    make_chain_matcher, make_loop_selector, make_packed_indexed_matcher,
 )
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
 from tpu_slam_torch.utils.profiling import StageTimer
@@ -56,8 +69,9 @@ class OfflineResult:
     solver: PoseGraphSolver
     candidates_tried: int
     timer: object = None  # StageTimer
-    anchors_accepted: int = 0
+    anchors_accepted: int = 0  # correlative re-anchor edges in the graph
     anchors_tried: int = 0
+    skip_edges: int = 0  # skip edges accepted into the graph
 
 
 def _bucket(n: int, lo: int = 64) -> int:
@@ -202,6 +216,86 @@ def _thin_loops(loop_edges: list[LoopEdge], ocfg) -> list[LoopEdge]:
     return kept
 
 
+def laser_points(ranges, valid, angles, corrected_pts=None) -> np.ndarray:
+    """The mission's (T, N, 2) float32 laser-frame points, as the reference
+    computes them on the host: ``corrected_pts``, or the polar→Cartesian
+    conversion of the ranges; invalid beams and non-finite points
+    zeroed."""
+    if corrected_pts is not None:
+        pts = np.where(valid[..., None], np.asarray(corrected_pts, np.float32),
+                       0.0).astype(np.float32)
+    else:
+        pts = np.where(
+            valid[..., None],
+            np.stack([ranges * np.cos(angles), ranges * np.sin(angles)], -1),
+            0.0,
+        ).astype(np.float32)
+    pts[~np.isfinite(pts)] = 0.0
+    return pts
+
+
+def anchor_levels(cfg: SLAMConfig, T: int, device) -> list:
+    """The anchor sweep's levels for a mission of T scans, in sweep order:
+    (level, matcher, span, gap, step). Level 1, the long lever at a
+    coarser pitch (``anchor_long_*``), sweeps first where the mission is
+    long enough; level 0 is the front end's window. The matchers take no
+    response expansion, as the reference's do."""
+    c, ocfg = cfg.correlative, cfg.offline
+
+    def matcher(search, res, smear):
+        return CorrelativeMatcher(
+            CorrelativeParams(
+                search_size=search,
+                resolution=res,
+                smear_deviation=smear,
+                range_threshold=cfg.scan.range_threshold,
+                angle_offset=c.coarse_search_angle_offset,
+                angle_res=c.coarse_angle_resolution,
+                fine_angle_offset=c.fine_search_angle_offset,
+                distance_variance_penalty=c.distance_variance_penalty,
+                angle_variance_penalty=c.angle_variance_penalty,
+                minimum_distance_penalty=c.minimum_distance_penalty,
+                minimum_angle_penalty=c.minimum_angle_penalty,
+            ),
+            use_response_expansion=False, device=device,
+        )
+
+    levels = [(0, matcher(c.correlation_search_space_dimension,
+                          c.correlation_search_space_resolution,
+                          c.correlation_search_space_smear_deviation),
+               ocfg.anchor_span, ocfg.anchor_gap, ocfg.anchor_step)]
+    if (ocfg.use_anchor_long
+            and T > ocfg.anchor_long_span + ocfg.anchor_long_step):
+        levels.insert(0, (1, matcher(ocfg.anchor_long_search,
+                                     ocfg.anchor_long_resolution,
+                                     ocfg.anchor_long_smear),
+                          ocfg.anchor_long_span, ocfg.anchor_long_step,
+                          ocfg.anchor_long_step))
+    return levels
+
+
+def anchor_group(lane_ts, span: int, gap: int, n_scans: int, lanes: int,
+                 poses: np.ndarray):
+    """One group of ``lanes`` anchor lanes: anchor t matched against
+    ``n_scans`` base scans spread over [t − span, t − gap] (repeats
+    dropped, the rest padded with −1), each scan at its current pose, from
+    t's current pose; lanes past ``lane_ts`` are padded. Returns
+    (chain_idx, base_poses, query_idx, query_poses) as
+    ``match_anchors_store_async`` takes them."""
+    ci = np.full((lanes, n_scans), -1.0, np.float32)
+    bp = np.zeros((lanes, n_scans, 3), np.float32)
+    qi = np.zeros(lanes, np.float32)
+    qp = np.zeros((lanes, 3), np.float32)
+    for lane, t in enumerate(lane_ts):
+        base = np.unique(np.linspace(t - span, t - gap, n_scans)
+                         .round().astype(np.int64))
+        ci[lane, :len(base)] = base
+        bp[lane, :len(base)] = poses[base]
+        qi[lane] = t
+        qp[lane] = poses[t]
+    return ci, bp, qi, qp
+
+
 def undistort_mission(
     scans: Scan,
     imu_stamps,
@@ -255,6 +349,9 @@ def offline_slam(
     T = ranges.shape[0]
     if T < 2:
         raise ValueError("offline_slam needs at least two scans")
+    # the laser-frame points: the anchor sweep's store, and the match store
+    # of a mission whose beam directions vary
+    pts = laser_points(ranges, valid, angles, corrected_pts)
 
     # mission scan store, uploaded ONCE; every match stage addresses it by
     # row index. A fixed-mount laser shares one beam-direction row, so the
@@ -263,24 +360,14 @@ def offline_slam(
     Ts = _bucket(T, lo=16)
     storev = np.zeros((Ts,) + valid.shape[1:], bool)
     storev[:T] = valid
-    if corrected_pts is not None:
-        pts = np.where(valid[..., None], np.asarray(corrected_pts, np.float32),
-                       0.0).astype(np.float32)
-    elif angles.ndim == 1 or bool(np.all(angles == angles[:1])):
-        pts = None
-    else:
-        pts = np.where(
-            valid[..., None],
-            np.stack([ranges * np.cos(angles), ranges * np.sin(angles)], -1),
-            0.0,
-        ).astype(np.float32)
-    if pts is None:
+    shared_dirs = corrected_pts is None and (
+        angles.ndim == 1 or bool(np.all(angles == angles[:1])))
+    if shared_dirs:
         a0 = angles if angles.ndim == 1 else angles[0]
         store = np.zeros((Ts,) + valid.shape[1:], np.float32)
         store[:T] = np.where(valid & np.isfinite(ranges), ranges, 0.0)
         dirs = np.stack([np.cos(a0), np.sin(a0)], axis=-1).astype(np.float32)
     else:
-        pts[~np.isfinite(pts)] = 0.0
         store = np.zeros((Ts,) + pts.shape[1:], np.float32)
         store[:T] = pts
         dirs = np.zeros((1, 2), np.float32)  # unused for a points store
@@ -290,6 +377,24 @@ def offline_slam(
 
     def up(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    pmatch = make_packed_indexed_matcher(cfg)
+
+    def pmatch_np(src_idx, tgt_idx, guesses):
+        """The packed indexed match of (B,) index batches padded to their
+        bucket (pads match scan 0 against itself and are dropped): the
+        (B, 14) packed result on the host, in one read."""
+        B = len(src_idx)
+        Bp = _bucket(B)
+        si = np.zeros(Bp, np.int64)
+        ti = np.zeros(Bp, np.int64)
+        g = np.zeros((Bp, 3), np.float32)
+        si[:B] = src_idx
+        ti[:B] = tgt_idx
+        g[:B] = guesses
+        out = pmatch(d_store, d_storev, d_dirs, up(si, torch.int64),
+                     up(ti, torch.int64), up(g, torch.float32))
+        return out.double().cpu().numpy()[:B]
 
     # 1. consecutive odometry chain + integration, one batched call -------
     if odom is not None:
@@ -335,21 +440,48 @@ def offline_slam(
         * float(np.median(chain_errs[np.isfinite(chain_errs)])),
     )
 
-    # the drift-control stages engage on routes ≥ drift_control_min_route
+    # 2. multi-stride skip edges: t against t + s, one batched call over
+    # all strides, guesses from the integrated chain. The route length
+    # engages both drift-control stages (skip edges and anchors).
     route_len = float(np.sum(np.hypot(chain_rels[:, 0], chain_rels[:, 1])))
-    if route_len >= ocfg.drift_control_min_route:
-        skip_on = any(1 < s < T for s in ocfg.skip_strides)
-        anchor_on = (ocfg.use_anchor and T >= ocfg.anchor_min_scans
-                     and T > ocfg.anchor_span + ocfg.anchor_step)
-        if skip_on or anchor_on:
-            raise NotImplementedError(
-                f"route of {route_len:.1f} m engages the drift-control "
-                "stages (skip edges, correlative anchors), which are not "
-                "ported yet (ROADMAP queue 1, item 2)"
-            )
+    drift_control = route_len >= ocfg.drift_control_min_route
+    skip_edges: list[tuple[int, int, np.ndarray, np.ndarray]] = []
+    skip_pairs = []
+    for s in ocfg.skip_strides if drift_control else ():
+        if 1 < s < T:
+            ii = np.arange(0, T - s, s, dtype=np.int64)
+            skip_pairs.append(np.stack([ii, ii + s], axis=-1))
+    if skip_pairs:
+        sp = np.concatenate(skip_pairs)
+        si, sj = sp[:, 0], sp[:, 1]
+        sguess = gnp.relative(chain_poses[si], chain_poses[sj]).astype(
+            np.float32)
+        with timer.stage("skip_match"):
+            spk = pmatch_np(sj, si, sguess)
+        srels = spk[:, :3]
+        scovs = spk[:, 5:14].reshape(-1, 3, 3) + floor
+        serrs = spk[:, 3]
+        sfrac = spk[:, 4] / np.maximum(
+            valid[sj].sum(axis=-1).astype(np.float64), 1.0)
+        sdev = srels - sguess.astype(np.float64)
+        sdev_th = np.arctan2(np.sin(sdev[:, 2]), np.cos(sdev[:, 2]))
+        s_ok = (
+            (sfrac >= ocfg.min_inlier_frac)
+            & np.isfinite(serrs)
+            & (serrs <= err_gate)
+            & (np.linalg.norm(sdev[:, :2], axis=-1) <= ocfg.skip_dev_xy)
+            & (np.abs(sdev_th) <= ocfg.skip_dev_theta)
+        )
+        for k in np.nonzero(s_ok)[0]:
+            skip_edges.append((int(si[k]), int(sj[k]), srels[k], scovs[k]))
+
+    anchor_edges: dict[tuple[int, int],
+                       tuple[int, int, np.ndarray, np.ndarray]] = {}
 
     def _build_solver(loop_edges: list[LoopEdge], init_poses: np.ndarray):
-        # nodes start from the current estimate (warm start)
+        # nodes start from the current estimate (warm start); the edges
+        # past the chain go in the reference's order, skip, anchor, loop,
+        # which is the float32 sum order of the solve
         loop_edges = _thin_loops(loop_edges, ocfg)
         s = PoseGraphSolver(cfg.solver, device=dev)
         s.add_nodes(range(T), init_poses)
@@ -357,13 +489,23 @@ def offline_slam(
             np.arange(T - 1), np.arange(1, T), chain_rels,
             covariances=chain_covs,
         )
-        if loop_edges:
+        extra = list(skip_edges) + list(anchor_edges.values()) + [
+            (e.i, e.j, e.mean, e.covariance) for e in loop_edges
+        ]
+        if extra:
             s.add_constraints(
-                [e.i for e in loop_edges], [e.j for e in loop_edges],
-                np.asarray([e.mean for e in loop_edges]),
-                covariances=np.asarray([e.covariance for e in loop_edges]),
+                [t[0] for t in extra], [t[1] for t in extra],
+                np.asarray([t[2] for t in extra]),
+                covariances=np.asarray([t[3] for t in extra]),
             )
         return s
+
+    def _solve():
+        nonlocal poses, solver
+        with timer.stage("solve"):
+            solver = _build_solver(loops, poses)
+            solver.compute()
+            poses = solver.get_poses()
 
     seeds = _seed_lattice(ocfg)
     S = seeds.shape[0]
@@ -376,13 +518,21 @@ def offline_slam(
     loops: list[LoopEdge] = []  # the consistent set fed to the solver
     tried: set[tuple[int, int]] = set()
 
-    for rnd in range(ocfg.rounds):
-        # candidates from the current pose estimates
+    def _loop_rounds():
+        # 3.-6. detect → match → PCM → solve, ``rounds`` times; again after
+        # each anchor sweep, since candidates are gathered around the
+        # current estimates
+        for rnd in range(ocfg.rounds):
+            if not _loop_round(rnd):
+                break
+
+    def _loop_round(rnd: int) -> bool:
+        nonlocal loops
         with timer.stage("candidates"):
             cands = _loop_candidates(poses, ocfg, tried)
         tried.update(cands)
         if not cands:
-            break
+            return False
         C = len(cands)
         ci = np.fromiter((c[0] for c in cands), np.int64, C)
         cj = np.fromiter((c[1] for c in cands), np.int64, C)
@@ -420,8 +570,7 @@ def offline_slam(
                 )
             )
         if not accept.any():
-            break
-
+            return False
         # pairwise-consistency selection over ALL edges so far
         if ocfg.use_pcm:
             with timer.stage("pcm"):
@@ -432,13 +581,88 @@ def offline_slam(
         else:
             loops = list(candidates_all)
         if not loops:
-            break
+            return False
+        _solve()
+        return True
 
-        # global solve
-        with timer.stage("solve"):
-            solver = _build_solver(loops, poses)
-            solver.compute()
-            poses = solver.get_poses()
+    # 7. the correlative anchor sweep: each anchor scan re-matched against a
+    # submap of its recent past at the current estimates; an accepted match
+    # becomes an edge against the FAR end of the submap
+    anchors_tried = 0
+    anchor_on = (ocfg.use_anchor and drift_control
+                 and T >= ocfg.anchor_min_scans
+                 and T > ocfg.anchor_span + ocfg.anchor_step)
+    if anchor_on:
+        levels = anchor_levels(cfg, T, dev)
+        # the laser-frame points upload once; anchor groups address them
+        # by row index
+        store_pts = torch.as_tensor(pts, device=dev)
+        store_valid = torch.as_tensor(valid, device=dev)
+
+    def _anchor_sweep() -> bool:
+        nonlocal anchors_tried
+        Sa = ocfg.anchor_scans
+        C = ocfg.anchor_lanes
+        any_edges = False
+        for level, matcher, span, gap, step in levels:
+            anchors = np.arange(span, T, step)
+            anchors_tried += len(anchors)
+            with timer.stage("anchor_match"):
+                outs = []
+                for g0 in range(0, len(anchors), C):
+                    lane_ts = anchors[g0:g0 + C]
+                    outs.append((lane_ts, matcher.match_anchors_store_async(
+                        store_pts, store_valid,
+                        *anchor_group(lane_ts, span, gap, Sa, C, poses))))
+                # every group is queued: one read-back pass
+                for lane_ts, out in outs:
+                    o = to_host(out)
+                    for lane, t in enumerate(lane_ts):
+                        if o[lane, 3] < ocfg.anchor_min_response:
+                            continue
+                        # the far end of the submap: the match pins t
+                        # against the whole span
+                        ref = int(t - span)
+                        mean = gnp.relative(poses[ref],
+                                            o[lane, :3].astype(np.float64))
+                        cov = (o[lane, 4:13].reshape(3, 3).astype(np.float64)
+                               + floor)
+                        key = (level, int(t))
+                        prev = anchor_edges.get(key)
+                        # only a new or changed edge counts as found
+                        if prev is None or not (
+                                np.array_equal(prev[2], mean)
+                                and np.array_equal(prev[3], cov)):
+                            any_edges = True
+                        anchor_edges[key] = (ref, int(t), mean, cov)
+            if anchor_edges:
+                # a solve between levels: the long sweep's correction
+                # re-centres the short sweep's windows
+                _solve()
+        return any_edges
+
+    # macro schedule: loops are gathered around the current poses and
+    # anchors need decent poses to centre their windows, so the two
+    # alternate until a pass finds nothing new (at most macro_rounds)
+    _loop_rounds()
+    n_anchors_used = 0
+    if anchor_on:
+        for _macro in range(ocfg.macro_rounds):
+            found_anchor = False
+            for _ in range(ocfg.anchor_rounds):
+                if not _anchor_sweep():
+                    break
+                found_anchor = True
+            n_loops = len(loops)
+            _loop_rounds()  # re-detect from anchor-corrected poses
+            if not found_anchor and len(loops) == n_loops:
+                break
+        n_anchors_used = len(anchor_edges)
+        # anchors are a bootstrap scaffold: once enough loops carry the
+        # global structure, the final solve drops them
+        if anchor_edges and len(loops) >= ocfg.anchor_drop_min_loops:
+            anchor_edges.clear()
+            _solve()
 
     return OfflineResult(
         poses=poses,
@@ -448,4 +672,7 @@ def offline_slam(
         solver=solver,
         candidates_tried=len(tried),
         timer=timer,
+        anchors_accepted=max(n_anchors_used, len(anchor_edges)),
+        anchors_tried=anchors_tried,
+        skip_edges=len(skip_edges),
     )

@@ -15,8 +15,10 @@ on ``cuda`` the hand-written kernel ``csrc/correlative_response.cu``, on
 PyTorch, as it is XLA code in the reference.
 
 Every function here takes a leading lane axis where the reference maps
-over lanes: a chain group's C lanes share one query scan and go through
-one grid build, one kernel launch per pass and one device→host read.
+over lanes: a chain group's C lanes share one query scan, an anchor
+group's C lanes each have their own query scan and search centre, and
+either group goes through one grid build, one kernel launch per pass and
+one device→host read.
 
 **The reference's float32 arithmetic.** Which cell a point lands in is
 decided by rounding float32 values, so a one-ulp difference moves a beam
@@ -285,11 +287,12 @@ def angle_ladder(theta: torch.Tensor, angle_offset: float,
 
 
 def _rotate_cells(angles: torch.Tensor, pts_cells: torch.Tensor):
-    """Rotated beam offsets (rx, ry), angles (..., A) × points (N, 2) →
-    (..., A, N) each, as the reference's response paths compute them."""
+    """Rotated beam offsets (rx, ry), angles (..., A) × points (N, 2), or
+    (..., N, 2) a lane, → (..., A, N) each, as the reference's response
+    paths compute them."""
     s, c = sincosf(angles)
     s, c = s[..., None], c[..., None]
-    px, py = pts_cells[:, 0], pts_cells[:, 1]
+    px, py = pts_cells[..., None, :, 0], pts_cells[..., None, :, 1]
     return _fma(c, px, -(s * py)), _fma(s, px, c * py)
 
 
@@ -304,7 +307,8 @@ def build_correlation_grid(
 ) -> torch.Tensor:
     """Rasterize base-scan world points around ``center_xy`` and smear.
 
-    pts: (..., K, 2) world points, valid: (..., K). Returns the int32 grid
+    pts: (..., K, 2) world points, valid: (..., K); ``center_xy`` (2,), or
+    one a grid (L, 2) for L grids. Returns the int32 grid
     (..., G, W8), W8 the 8-aligned row stride (right-padded with zeros),
     values 0..100: LUT[min d² to an occupied cell] by the separable
     two-pass squared-distance transform, int-exact like the reference.
@@ -322,6 +326,8 @@ def build_correlation_grid(
     lut = torch.as_tensor(smear_lut(params), device=dev)
     inf = 2 * h * h + 1
 
+    if center_xy.dim() > 1:
+        center_xy = center_xy.reshape(L, 1, 2)
     rel = (pts - center_xy) * recip32(params.resolution)
     ix = kround_i(rel[..., 0]) + c
     iy = kround_i(rel[..., 1]) + c
@@ -367,7 +373,8 @@ def _responses_for_angles(grid_flat, g: int, w8: int, pts_local, beam_valid,
     GetResponse (Mapper.cpp:843-848), row wrap included."""
     C, nA = angles.shape
     nC = cand_cells_flat.shape[-1]
-    N = pts_local.shape[0]
+    N = pts_local.shape[-2]
+    beam_valid = beam_valid.expand(C, N)[:, None, None, :]
     size = g * w8
     rx, ry = _rotate_cells(angles, pts_local)
     off = kround_i(ry) * w8 + kround_i(rx)  # (C, nA, N)
@@ -419,8 +426,10 @@ def window_starts(pts_cells, beam_valid, angles, cand0_xy, H: int, W: int,
     shifted, not masked. (The reference's Pallas kernel clamps without the
     wrap; the two differ only for a negative start, ROADMAP queue 3.)
     angles (C, A), cand0_xy (C, 2) [x, y]. Invalid beams (whose points may
-    be ±inf or NaN) get offset 0."""
+    be ±inf or NaN) get offset 0. Points are shared, (N, 2), or a lane's
+    own, (C, N, 2); flags (N,) or (C, N) are taken as (C, N)."""
     rx, ry = _rotate_cells(angles, pts_cells)
+    beam_valid = beam_valid.expand(rx.shape[0], rx.shape[-1])[:, None]
     starts = []
     for k, (r, dim, n) in enumerate(((ry, H, n_y), (rx, W, n_x))):
         o = torch.where(beam_valid, kround(r), 0.0).to(torch.int32)
@@ -434,10 +443,11 @@ def window_starts(pts_cells, beam_valid, angles, cand0_xy, H: int, W: int,
 def sum_windows(grid, ys, xs, beam_valid, n_x: int, n_y: int, stride: int):
     """The plain version of the ``correlative_response`` kernel: for every
     lane c, angle a and candidate (y, x), the sum over beams n of
-    grid[c, ys[c,a,n] + y·stride, xs[c,a,n] + x·stride] · valid[n].
+    grid[c, ys[c,a,n] + y·stride, xs[c,a,n] + x·stride] · valid[c, n].
     grid (C, H, W) of any integer type, ys/xs (C, A, N) int32, beam_valid
-    (N,) bool; returns (C, A, nY·nX) int32. Starts are clamped as the
-    kernel clamps them (a no-op for ``window_starts``' output)."""
+    (C, N) bool (a lane's own flags, or one scan's expanded); returns
+    (C, A, nY·nX) int32. Starts are clamped as the kernel clamps them (a
+    no-op for ``window_starts``' output)."""
     C, H, W = grid.shape
     A, N = ys.shape[1:]
     span_x = (n_x - 1) * stride + 1
@@ -450,13 +460,14 @@ def sum_windows(grid, ys, xs, beam_valid, n_x: int, n_y: int, stride: int):
             + torch.clamp(xs.to(torch.int64), 0, W - span_x)
             + (torch.arange(C, device=dev) * (H * W))[:, None, None])
     base = base.reshape(C * A, N)
-    keep = beam_valid.to(torch.int32)[:, None]
+    keep = beam_valid.expand(C, N)[:, None].expand(C, A, N).reshape(
+        C * A, N, 1).to(torch.int32)
     # (rows, beams, candidates) gathered at once: ~8 M elements a step
     rows = max(1, 8_000_000 // max(N * n_x * n_y, 1))
     out = torch.empty((C * A, n_y * n_x), dtype=torch.int32, device=dev)
     for r0 in range(0, C * A, rows):
         idx = base[r0:r0 + rows, :, None] + lat  # (rows, N, nCand)
-        vals = flat[idx].to(torch.int32) * keep
+        vals = flat[idx].to(torch.int32) * keep[r0:r0 + rows]
         out[r0:r0 + rows] = vals.sum(1, dtype=torch.int32)
     return out.view(C, A, n_y * n_x)
 
@@ -513,13 +524,15 @@ def correlate_scan(
     do_penalize: bool,
 ) -> CorrelateResult:
     """One CorrelateScan pass (Mapper.cpp:309-523) over grids (G, W8) or
-    (C, G, W8) (int32 or uint8) with search centers (3,) or (C, 3).
+    (C, G, W8) (int32 or uint8) with search centers (3,) or (C, 3), grid
+    centers (2,) or (C, 2).
 
     Candidate poses are center + (dx, dy) over the static offsets and
     headings center.θ − angle_offset + i·angle_res. scan_pts_laser: (N, 2)
-    beam endpoints in the LASER frame, ALL beams; NaN/inf beams carry
-    beam_valid=False. The numerators come from the response kernel (or
-    its plain version on the CPU) when the offsets form a lattice."""
+    beam endpoints in the LASER frame, ALL beams, or (C, N, 2) a lane's own
+    scan; NaN/inf beams carry beam_valid=False ((N,) or (C, N)). The
+    numerators come from the response kernel (or its plain version on the
+    CPU) when the offsets form a lattice."""
     from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
 
     lanes = grid.dim() == 3
@@ -528,6 +541,7 @@ def correlate_scan(
     p = params
     g, w8 = p.grid_size, p.row_stride
     C = grid.shape[0]
+    beam_valid = beam_valid.contiguous().expand(C, scan_pts_laser.shape[-2])
     dt, dev = scan_pts_laser.dtype, grid.device
     nX, nY = len(x_offsets), len(y_offsets)
     xo = torch.as_tensor(np.asarray(x_offsets, np.float32), device=dev)
@@ -542,12 +556,14 @@ def correlate_scan(
                                 beam_valid, angles, x_offsets, y_offsets,
                                 stride)
         grid8 = grid if grid.dtype == torch.uint8 else grid.to(torch.uint8)
-        nums = responses_sliced(grid8.contiguous(), ys, xs,
-                                beam_valid.contiguous(), nX, nY, stride)
+        nums = responses_sliced(grid8.contiguous(), ys, xs, beam_valid, nX,
+                                nY, stride)
     else:
         cand = torch.stack(torch.meshgrid(yo, xo, indexing="ij"), -1)
         cand_world = search_center[:, None, None, :2] + cand.flip(-1)
-        rel = (cand_world - grid_center_xy) * recip32(p.resolution)
+        gc = (grid_center_xy if grid_center_xy.dim() == 1
+              else grid_center_xy[:, None, None, :])
+        rel = (cand_world - gc) * recip32(p.resolution)
         cix = kround_i(rel[..., 0]) + p.center_cell
         ciy = kround_i(rel[..., 1]) + p.center_cell
         nums = _responses_for_angles(
@@ -555,7 +571,7 @@ def correlate_scan(
             (ciy * w8 + cix).reshape(C, -1))
     # normalized by the TOTAL reading count, NaN beams included (GetResponse
     # nPoints, Mapper.cpp:852-853)
-    n_beams = scan_pts_laser.shape[0]
+    n_beams = scan_pts_laser.shape[-2]
     resp = nums.to(dt) * recip32(GRID_OCCUPIED * n_beams)
     resp = resp.view(C, n_angles, nY, nX)
 
@@ -589,9 +605,10 @@ def correlate_scan(
     bflat = ((kround_i(brel[:, 1]) + p.center_cell) * w8
              + kround_i(brel[:, 0]) + p.center_cell)
     rx, ry = _rotate_cells(angles, pts_cells)
+    bv = beam_valid[:, None]
     idx = (bflat[:, None, None] + torch.where(
-        beam_valid, kround_i(ry) * w8 + kround_i(rx), 0))  # (C, nA, N)
-    ok = beam_valid & (idx >= 0) & (idx < g * w8)
+        bv, kround_i(ry) * w8 + kround_i(rx), 0))  # (C, nA, N)
+    ok = bv & (idx >= 0) & (idx < g * w8)
     vals = torch.gather(grid.reshape(C, -1), 1,
                         torch.clamp(idx, 0, g * w8 - 1).to(torch.int64)
                         .view(C, -1)).view(idx.shape)
@@ -692,7 +709,8 @@ def angular_covariance(
 def find_valid_points(pts: torch.Tensor, valid: torch.Tensor,
                       viewpoint: torch.Tensor) -> torch.Tensor:
     """FindValidPoints (Mapper.cpp:765-813) over leading axes: pts
-    (..., N, 2), valid (..., N), viewpoint (2,). The walk keeps a trailing
+    (..., N, 2), valid (..., N), viewpoint (2,) or any (..., 2) that
+    broadcasts against the leading axes. The walk keeps a trailing
     anchor; when a point lies more than 10 cm from it, the run of points
     since the anchor is kept iff the determinant test at the new anchor
     says the surface faces the viewpoint (ss ≥ 0). The run after the last
@@ -710,12 +728,14 @@ def find_valid_points(pts: torch.Tensor, valid: torch.Tensor,
     dev = pts.device
     P = pts.reshape(-1, N, 2)
     B = P.shape[0]
-    vp = viewpoint.to(P.dtype)
+    vp = torch.broadcast_to(viewpoint.to(P.dtype),
+                            (*lead, 2)).reshape(B, 1, 2)
+    vx, vy = vp[..., 0], vp[..., 1]
     # a point p as the anchor: its (x, y, a, b, c) with the reference's
     # coefficients (Mapper.cpp:792-800)
     cand = torch.stack([
-        P[..., 0], P[..., 1], vp[1] - P[..., 1], P[..., 0] - vp[0],
-        P[..., 1] * vp[0] - P[..., 0] * vp[1]], -1)  # (B, N, 5)
+        P[..., 0], P[..., 1], vy - P[..., 1], P[..., 0] - vx,
+        P[..., 1] * vx - P[..., 0] * vy], -1)  # (B, N, 5)
     not_nan = ~torch.isnan(P).any(-1)
     first = torch.argmax(not_nan.to(torch.uint8), dim=1)
     state = cand[torch.arange(B, device=dev), first]  # (B, 5)
@@ -790,16 +810,18 @@ class CorrelativeMatcher:
                   do_fine: bool):
         """The match program: grid build → coarse correlate → positional
         covariance → fine correlate → angular covariance, over C lanes of
-        base points (C, K, 2) that share the query scan and its pose."""
+        base points (C, K, 2). The lanes share the query scan (N, 2), its
+        flags (N,) and its pose (3,), or each has its own: (C, N, 2),
+        (C, N), (C, 3); each lane's grid is centred on its pose."""
         p = self.p
         n_ang = int(round(angle_offset * 2.0 / p.angle_res)) + 1
 
         def f(base_pts, base_valid, pts, bvalid, scan_pose):
             C = base_pts.shape[0]
-            grid_center = scan_pose[:2]
+            center = scan_pose.expand(C, 3)
+            grid_center = center[:, :2]
             grid = build_correlation_grid(p, grid_center, base_pts,
                                           base_valid).to(torch.uint8)
-            center = scan_pose.expand(C, 3)
             coarse = correlate_scan(
                 grid, p, grid_center, center, pts, bvalid, self.coarse_x,
                 self.coarse_y, n_ang, angle_offset, p.angle_res,
@@ -842,10 +864,12 @@ class CorrelativeMatcher:
 
     def _chain_lanes(self, f, poses, pts_l, valid, spts, svalid, spose):
         """World transform + FindValidPoints view filter of C lanes of S
-        scans each, then the match: packed (C, 13)."""
+        scans each, then the match: packed (C, 13). The query scan and its
+        pose are shared ((N, 2), (N,), (3,)) or a lane's own ((C, N, 2),
+        (C, N), (C, 3))."""
         C, S, N = valid.shape
         wp = apply_pose(poses, pts_l)
-        keep = find_valid_points(wp, valid, spose[:2])
+        keep = find_valid_points(wp, valid, spose[..., None, :2])
         return self._pack(f(wp.reshape(C, S * N, 2), keep.reshape(C, S * N),
                             spts, svalid, spose))
 
@@ -903,15 +927,57 @@ class CorrelativeMatcher:
 
         return packed
 
-    def _full_anchor_store(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the multi-query anchor matcher of the offline missions is not "
-            "ported yet (ROADMAP queue 1, item 6)")
+    def _full_anchor_store(self, n_lanes: int, n_scans: int, cap: tuple,
+                           do_penalize: bool, do_fine: bool):
+        """Multi-query ``_full_chains_store``: each lane matches its own
+        query scan (a store row) at its own search centre against its own
+        base-scan set, all C lanes through one grid build and one response
+        launch per pass. Built for the offline anchor sweep
+        (``models/offline.py``). It takes one packed float32 buffer
+        [base_poses (C, S, 3) | base idx (C, S) | query idx (C,) | query
+        poses (C, 3)], padded members at index −1, and returns (C, 13)."""
+        C, S = n_lanes, n_scans
+        f = self._match_fn(self.p.angle_offset, do_penalize, do_fine)
 
-    def match_anchors_store_async(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the offline anchor sweep (match_anchors_store_async) is not "
-            "ported yet (ROADMAP queue 1, item 6)")
+        def packed(store_pts, store_valid, buf):
+            o = 0
+            poses = buf[o:o + C * S * 3].view(C, S, 3)
+            o += C * S * 3
+            idxf = buf[o:o + C * S].view(C, S)
+            o += C * S
+            qif = buf[o:o + C]
+            o += C
+            qposes = buf[o:o + C * 3].view(C, 3)
+            member = idxf >= -0.5  # padded members carry index −1
+            idx = torch.clamp(idxf.to(torch.int64), 0, cap[0] - 1)
+            qi = torch.clamp(qif.to(torch.int64), 0, cap[0] - 1)
+            bvalid = store_valid[idx] & member[..., None]
+            return self._chain_lanes(f, poses, store_pts[idx], bvalid,
+                                     store_pts[qi], store_valid[qi], qposes)
+
+        return packed
+
+    def match_anchors_store_async(self, store_pts, store_valid, chain_idx,
+                                  base_poses, query_idx, query_poses,
+                                  do_penalize: bool = True,
+                                  do_fine: bool = True) -> torch.Tensor:
+        """Queue one C-lane anchor group on the store's device: store_pts
+        (cap, N, 2) laser points and store_valid (cap, N), chain_idx (C, S)
+        store rows (−1 a padded member), base_poses (C, S, 3), query_idx
+        (C,) each lane's query row, query_poses (C, 3) each lane's search
+        centre. Returns the (C, 13) result (pose | response | covariance)
+        still on the device: callers queue many groups and read them
+        once."""
+        C, S = (int(d) for d in np.shape(chain_idx))
+        cap = (int(store_pts.shape[0]), int(store_pts.shape[1]))
+        buf = torch.as_tensor(np.concatenate([
+            np.asarray(base_poses, np.float32).ravel(),
+            np.asarray(chain_idx, np.float32).ravel(),
+            np.asarray(query_idx, np.float32).ravel(),
+            np.asarray(query_poses, np.float32).ravel(),
+        ])).to(store_pts.device)
+        return self._full_anchor_store(C, S, cap, do_penalize, do_fine)(
+            store_pts, store_valid, buf)
 
     def match_chains_store(self, store_pts, store_valid, chain_idx,
                            base_poses, scan_pts_laser, beam_valid, scan_pose,

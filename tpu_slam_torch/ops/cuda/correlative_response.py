@@ -35,7 +35,8 @@ def responses_sliced(grid, ys, xs, beam_valid, n_x: int, n_y: int,
     """(C, A, nY·nX) int32: for every lane, angle and candidate (y, x),
     the sum over valid beams of grid[c, ys + y·stride, xs + x·stride].
     grid (C, H, W) uint8 (values 0..100), ys/xs (C, A, N) int32 window
-    starts, beam_valid (N,) bool."""
+    starts, beam_valid (C, N) bool: a lane's own flags, or one scan's
+    shared by the lanes as ``flags.expand(C, N)`` (lane stride 0)."""
     if _dispatch.route(grid) == "cpu":
         return correlative.sum_windows(grid, ys, xs, beam_valid, n_x, n_y,
                                        stride)
@@ -50,13 +51,20 @@ def responses_sliced(grid, ys, xs, beam_valid, n_x: int, n_y: int,
     _check("grid", grid, torch.uint8, (C, H, W), dev)
     _check("ys", ys, torch.int32, (C, A, N), dev)
     _check("xs", xs, torch.int32, (C, A, N), dev)
-    _check("beam_valid", beam_valid, torch.bool, (N,), dev)
+    if (beam_valid.dtype != torch.bool or beam_valid.shape != (C, N)
+            or beam_valid.device != dev or beam_valid.stride(1) != 1):
+        raise ValueError(
+            f"beam_valid: expected bool ({C}, {N}) on {dev}, each lane's "
+            f"beams contiguous, got {beam_valid.dtype} "
+            f"{tuple(beam_valid.shape)} strides {beam_valid.stride()} on "
+            f"{beam_valid.device}")
     out = torch.zeros((C, A, n_y * n_x), dtype=torch.int32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _build.launch(
         "correlative_response", grid.data_ptr(), ys.data_ptr(),
         xs.data_ptr(), beam_valid.data_ptr(), out.data_ptr(), C, H, W, A, N,
         n_x, n_y, stride, beam_chunk(C, A, n_x * n_y, N, sms),
+        beam_valid.stride(0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _dispatch.count_launch("correlative_response")

@@ -19,8 +19,11 @@ from tpu_slam_torch import _build, _dispatch
 from tpu_slam_torch.ops.cuda.plicp_fused import _check
 from tpu_slam_torch.ops.matching import nearest_neighbor_direct
 
-MAX_TARGETS = 4096  # targets staged in shared memory: 16 bytes each
-MAX_TILES = 65535  # the grid's y extent: tiles of one pair's sources
+MAX_TARGETS = 4096  # targets a staged chunk in shared memory: 16 B each
+# the grid's y extent, a hardware bound: tiles of one pair's sources. At
+# one lane a source (G = 1 once N ≥ 67,584 on 132 SMs) N = 16,776,961
+# first reaches it
+MAX_TILES = 65535
 MAX_THREADS = 256  # threads a block (nn.cu)
 MAX_LANES = 32  # lanes that share a source: one warp (nn.cu)
 # the card counts as full at this many lanes an SM; chip_sweep.py times
@@ -34,6 +37,8 @@ class NNGeometry(NamedTuple):
     tiles: int  # blocks a pair (the grid is (B, tiles)), each of
     #             threads / G sources
     smem: int  # bytes of shared memory a block: the staged targets
+    targets: int  # targets a staged chunk: all M up to MAX_TARGETS
+    chunks: int  # ⌈M / targets⌉ chunks staged in turn
 
 
 @functools.lru_cache(maxsize=256)
@@ -50,11 +55,13 @@ def nn_geometry(B: int, N: int, M: int, sms: int) -> NNGeometry:
 
 def tile_sources(N: int, M: int, lanes: int) -> NNGeometry:
     """The kernel's shape at ``lanes`` a source: a pair's N sources cut
-    into even tiles of whole warps, at most ``MAX_THREADS`` a block."""
+    into even tiles of whole warps, at most ``MAX_THREADS`` a block; the
+    M targets staged ``MAX_TARGETS`` at a time."""
     slots = N * lanes  # threads a pair needs
     tiles = -(-slots // MAX_THREADS)
     threads = 32 * -(-slots // (32 * tiles))
-    return NNGeometry(lanes, threads, tiles, 16 * M)
+    mc = min(M, MAX_TARGETS)
+    return NNGeometry(lanes, threads, tiles, 16 * mc, mc, -(-M // mc))
 
 
 def nearest_neighbor_cuda(
@@ -75,7 +82,7 @@ def nearest_neighbor_cuda(
     _check("src", src, torch.float32, (B, N, 2), dev)
     _check("tgt", tgt, torch.float32, (B, M, 2), dev)
     _check("tgt_valid", tgt_valid, torch.bool, (B, M), dev)
-    if not (0 < M <= MAX_TARGETS and N > 0):
+    if not (M > 0 and N > 0):
         raise ValueError(f"N={N}, M={M} outside the NN kernel's range")
     idx = torch.empty((B, N), dtype=torch.int64, device=dev)
     d2 = torch.empty((B, N), dtype=torch.float32, device=dev)
@@ -86,7 +93,7 @@ def nearest_neighbor_cuda(
         _build.launch(
             "nn", src.data_ptr(), tgt.data_ptr(), tgt_valid.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), B, N, M, geo.lanes, geo.threads,
-            geo.tiles, geo.smem,
+            geo.tiles, geo.smem, geo.targets,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _dispatch.count_launch("nn")
