@@ -73,11 +73,20 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      the full ``default_config()``: the front-end coarse (21 × 16²) and
      fine (11 × 3²) passes on the 2,445² grid of a 128-scan base, and the
      loop coarse pass (21 × 81²) on eight 645² grids in one launch; with
-     the kernel's device time from a replayed CUDA graph (the output's
-     zeroing included), the plain version's and the bound;
+     the launch geometry (``response_geometry``: the row or byte path,
+     candidates a thread, warps, blocks, strips a tile, beam slices; no
+     cluster), the nodes of one pass's CUDA graph (one kernel, no
+     memset), the kernel's device time from a replayed CUDA graph, the
+     plain version's, and the bound with its bytes and operations terms
+     (one 32-bit add per two candidates of a valid beam);
  13. the same on edge cases: windows clamped at every grid edge, starts
-     below 0 and past the edge, no valid beam (and a match without one,
-     which takes the response expansion), 1 and 1,500 beams, 1 lane;
+     below 0, past the edge and all at the far edge, no valid beam (and a
+     match without one, which takes the response expansion), 1, 656,
+     1,500 and 4,000 beams (4,000 also at the loop shape, eight staged
+     rounds, with one lane's grid all 100), odd nx at stride 1
+     and 2, a 1 × 1 lattice, 8 lanes with their own flags (lane stride N,
+     one lane with none valid) and with one scan's (lane stride 0), and a
+     grid whose base is not 8-byte aligned;
  14. the wall of each layer of one front-end match at that shape
      (``find_valid_points``, grid build, coarse and fine pass, the whole
      match and its read), then the online Karto main path, with the
@@ -338,6 +347,32 @@ def graph_ms(fn, reps: int) -> tuple[float, float, str]:
         _w, _b, per = device_profile(lambda: [fn() for _ in range(reps)])
         n, us = next(v for k, v in per.items() if k != "other")
         return us / n / 1e3, host_us, "profiler, per launch"
+
+
+def graph_nodes(fn) -> tuple[int, int]:
+    """The device work of one call of ``fn``, from the CUDA graph that
+    captures it: (kernel nodes, other nodes, e.g. memsets), read with
+    libcuda's cuGraphGetNodes and cuGraphNodeGetType."""
+    import ctypes
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels, count.value - kernels
 
 
 def plain_plicp(*args, **kw):
@@ -1630,10 +1665,11 @@ def window_cells(grid, ys, xs, valid, nx, ny, stride) -> int:
 
 def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
                      reps=(100, 2)):
-    """The kernel against its plain version: int32 equality, both times
-    (the kernel's from ``graph_ms``, the plain version's from CUDA events;
-    none when ``reps`` is 0) and the bound of this work. ``valid`` is
-    (C, N), or (N,) taken by every lane."""
+    """The kernel against its plain version: int32 equality, the launch
+    geometry, both times (the kernel's from ``graph_ms``, the plain
+    version's from CUDA events) and the nodes of one pass's CUDA graph
+    (none of these when ``reps`` is 0), and the bound of this work.
+    ``valid`` is (C, N), or (N,) taken by every lane."""
     C, A, N = ys.shape
     valid = valid.expand(C, N)
 
@@ -1648,24 +1684,37 @@ def response_compare(label, grid, ys, xs, valid, nx, ny, stride,
     err = int((k - pl).abs().max())
     nv = int(valid.sum())
     # the grid cells the valid beams' windows read, the starts and the
-    # flags read once, the numerators written once; one int32 add per
-    # lane, heading, candidate and valid beam of the lane
+    # flags read once, the numerators written once; one 32-bit add per two
+    # candidates of each lane, heading and valid beam of the lane (the
+    # kernel sums two candidates in the 16-bit halves of one register)
     cells = window_cells(grid, ys, xs, valid, nx, ny, stride)
-    work = bound(cells + 8 * ys.numel() + C * N + 4 * k.numel(),
-                 float(A * nx * ny * nv), PEAK_INT32_OPS)
+    nbytes = cells + 8 * ys.numel() + C * N + 4 * k.numel()
+    ops = A * nx * ny * nv / 2
+    work = bound(nbytes, ops, PEAK_INT32_OPS)
+    g = corr_response.response_geometry(C, A, grid.shape[2], nx, ny, stride,
+                                        N, _dispatch.sm_count(grid.device))
+    shape = (f"geometry path={g.path} R={g.R} warps={g.threads // 32} "
+             f"blocks={g.blocks(C, A, nx, ny, stride)} strips/tile="
+             f"{g.strips} slices={g.slices} no cluster")
     ms, plain_ms, times = None, None, "not timed"
     if reps[0]:
         ms, host_us, how = graph_ms(kern, reps[0])
+        launches, others = graph_nodes(kern)
         plain_ms = cuda_ms(plain, reps[1])
-        times = (f"kernel {ms:.4f} ms ({how}, with the output's zeroing; "
-                 f"the wrapper's host {host_us:.1f} us a call) plain "
-                 f"{plain_ms:.3f} ms")
+        times = (f"one pass: {launches} kernel node(s), {others} other "
+                 f"graph nodes; kernel {ms:.4f} ms ({how}; the wrapper's "
+                 f"host {host_us:.1f} us a call) plain {plain_ms:.3f} ms")
+        if launches != 1 or others:
+            raise AssertionError(f"{label}: a pass must be one kernel "
+                                 f"launch and nothing else, got {launches} "
+                                 f"kernels and {others} other device ops")
     print(f"{label}: lanes={C} headings={A} lattice={ny}x{nx} stride="
           f"{stride} beams={N} valid={nv} grid {grid.shape[1]}x"
-          f"{grid.shape[2]} int32 equal {err == 0} max|d|={err} sum "
-          f"{int(k.sum())} {times} bound {work['bound_ms']:.6f} ms "
-          f"({work['bound_by']}; {cells} grid cells of {grid.numel()} read)",
-          flush=True)
+          f"{grid.shape[2]} {shape} int32 equal {err == 0} max|d|={err} "
+          f"sum {int(k.sum())} {times} bound {work['bound_ms']:.6f} ms "
+          f"({work['bound_by']}; bytes {nbytes / PEAK_BYTES_PER_S * 1e3:.6f}"
+          f" ms: {cells} grid cells of {grid.numel()} read; operations "
+          f"{ops / PEAK_INT32_OPS * 1e3:.6f} ms)", flush=True)
     if err != 0 or k.shape != (C, A, nx * ny):
         raise AssertionError(f"{label}: the correlative kernel disagrees "
                              "with its plain version")
@@ -1699,10 +1748,10 @@ def phase_correlative(dev, cfg, scans, gt):
           "lane and heading; a convolution with a one-hot kernel of the "
           "rotated beams computes them only where no window is shifted",
           flush=True)
-    return out, (slam, pts, valid, poses), front
+    return out, (slam, pts, valid, poses), front, loop
 
 
-def phase_correlative_edges(dev, records, front) -> None:
+def phase_correlative_edges(dev, records, front, loop) -> None:
     """The kernel against its plain version off the main path's shapes."""
     slam, pts, valid, poses = records
     grid, ys, xs, v, nx, ny, stride = front
@@ -1729,16 +1778,63 @@ def phase_correlative_edges(dev, records, front) -> None:
     none = torch.zeros_like(v)
     response_compare("edge correlative no valid beam", grid, ys, xs, none,
                      nx, ny, stride, reps=(0, 0))
-    # 1 beam, and 1,500 beams (more than a block stages: split in chunks)
+    # every window at the far corner: the lattice's last row and column on
+    # the grid's
+    response_compare("edge correlative starts at the far edge", grid,
+                     torch.full_like(ys, H - (ny - 1) * stride - 1),
+                     torch.full_like(xs, W - (nx - 1) * stride - 1), v, nx,
+                     ny, stride, reps=(0, 0))
+    # 1 beam; 656, 1,500 and 4,000 beams (more than a round stages)
     response_compare("edge correlative 1 beam", grid,
                      ys[..., :1].contiguous(), xs[..., :1].contiguous(),
                      v[:1].contiguous(), nx, ny, stride, reps=(0, 0))
-    big = torch.randint(0, 2000, (1, ys.shape[1], 1500), generator=g,
-                        dtype=torch.int32).to(dev)
-    response_compare("edge correlative 1,500 beams", grid, big,
-                     big.flip(-1).contiguous(),
-                     torch.ones(1500, dtype=torch.bool, device=dev), nx, ny,
-                     stride, reps=(0, 0))
+    for n in (656, 1500, 4000):
+        big = torch.randint(0, 2000, (1, ys.shape[1], n), generator=g,
+                            dtype=torch.int32).to(dev)
+        flags = (torch.rand(n, generator=g) > 0.1 if n != 1500
+                 else torch.ones(n, dtype=torch.bool))
+        response_compare(f"edge correlative {n:,} beams", grid, big,
+                         big.flip(-1).contiguous(), flags.to(dev), nx, ny,
+                         stride, reps=(0, 0))
+    # odd nx at stride 1 and 2, where the candidates a thread do not
+    # divide the row, and a 1 x 1 lattice
+    for lnx, lny, ls in ((17, 5, 2), (7, 3, 1), (9, 9, 1), (1, 1, 1)):
+        y3, x3 = corr.window_starts(q, v, angles, torch.tensor(
+            [[W // 3, H // 3]], dtype=torch.int32, device=dev), H, W, lnx,
+            lny, ls)
+        response_compare(f"edge correlative lattice {lny}x{lnx} stride {ls}",
+                         grid, y3, x3, v, lnx, lny, ls, reps=(0, 0))
+    # a grid whose base is 1 byte past an 8-byte boundary
+    buf = torch.empty(grid.numel() + 4, dtype=torch.uint8, device=dev)
+    odd = buf[1:1 + grid.numel()].view(grid.shape)
+    odd.copy_(grid)
+    response_compare("edge correlative grid base not 8-byte aligned", odd, ys,
+                     xs, v, nx, ny, stride, reps=(0, 0))
+    # 8 lanes (the loop pass's grids, random values): each lane's own
+    # flags (lane stride N, lane 3 with none valid), one scan's (lane
+    # stride 0), and 4,000 beams with lane 0's grid all 100
+    lgrid, lys, lxs, lv, lnx, lny, ls = loop
+    lgrid = torch.randint(0, 101, lgrid.shape, generator=g,
+                          dtype=torch.uint8).to(dev)
+    C, A, N = lys.shape
+    own = (torch.rand(C, N, generator=g) > 0.2).to(dev)
+    own[3] = False
+    response_compare("edge correlative 8 lanes, own flags (lane stride N, "
+                     "lane 3 none valid)", lgrid, lys, lxs, own, lnx, lny, ls,
+                     reps=(0, 0))
+    response_compare("edge correlative 8 lanes, one scan's flags (lane "
+                     "stride 0)", lgrid, lys, lxs, own[0], lnx, lny, ls,
+                     reps=(0, 0))
+    lgrid[0] = 100
+    Hl, Wl = lgrid.shape[1:]
+    big_y = torch.randint(0, Hl - (lny - 1) * ls, (C, A, 4000), generator=g,
+                          dtype=torch.int32).to(dev)
+    big_x = torch.randint(0, Wl - (lnx - 1) * ls, (C, A, 4000), generator=g,
+                          dtype=torch.int32).to(dev)
+    response_compare("edge correlative 4,000 beams at the loop shape, lane 0 "
+                     "all 100", lgrid, big_y, big_x,
+                     torch.ones(4000, dtype=torch.bool, device=dev), lnx,
+                     lny, ls, reps=(0, 0))
     # a match whose scan has no valid beam: response 0, so the response
     # expansion runs 3 more passes, each a coarse and a fine launch
     m = slam.front_matcher
@@ -2818,8 +2914,8 @@ def main() -> None:
     hector_launches = phase_hector_main(dev)
     clock("Hector")
     kcfg, kscans, kodom, kgt = karto_recipe(dev)
-    resp, records, front = phase_correlative(dev, kcfg, kscans, kgt)
-    phase_correlative_edges(dev, records, front)
+    resp, records, front, loop = phase_correlative(dev, kcfg, kscans, kgt)
+    phase_correlative_edges(dev, records, front, loop)
     phase_karto_layers(dev, records)
     clock("correlative kernel")
     karto_launches = phase_karto_main(dev, kcfg, kscans, kodom, kgt)

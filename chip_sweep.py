@@ -1,4 +1,4 @@
-"""Shape sweeps on the card: the measurements behind four kernels' chosen
+"""Shape sweeps on the card: the measurements behind five kernels' chosen
 shapes.
 
 - The NN kernel (``tpu_slam_torch/csrc/nn.cu``) at every G = 1 … 32 lanes
@@ -28,6 +28,18 @@ shapes.
   ``chip_smoke.hector_compare``'s bars and timed the same way;
   ``hector_geometry``'s choice is marked.
 
+- The correlative response kernel
+  (``tpu_slam_torch/csrc/correlative_response.cu``) on its row path (an
+  8-byte chunk a thread: 4 candidates at stride 2, 8 at stride 1) and
+  its byte path (2 candidates a thread), at 2, 4, 8, 16 and 32 warps a
+  block
+  (``correlative_response.shape_at``: the tile and the beam slices follow
+  from them), at its seven pass shapes (``chip_rates.correlative_passes``:
+  the Karto recipe's front coarse, front fine and loop coarse passes, the
+  outdoor mission's long and short anchor passes, coarse and fine), each
+  setting held int32-equal to ``sum_windows`` and timed as a replayed
+  CUDA graph of its launches; ``response_geometry``'s choice is marked.
+
 Run from the root of the repository: ``python3 chip_sweep.py`` (one CUDA
 card; builds the kernels at first use). Prints one line per setting;
 ``python3 chip_sweep.py plicp hector`` runs only the sweeps named.
@@ -40,10 +52,14 @@ import sys
 
 import torch
 
+import chip_rates
 import chip_smoke as cs
+from tpu_slam_torch import _dispatch
 from tpu_slam_torch.config import SolverConfig
 from tpu_slam_torch.convert import solver_from_numpy
 from tpu_slam_torch.models.offline import offline_slam
+from tpu_slam_torch.ops import correlative as corr
+from tpu_slam_torch.ops.cuda import correlative_response as cresp
 from tpu_slam_torch.ops.cuda import hector_fused as chec
 from tpu_slam_torch.ops.cuda import nn as cnn
 from tpu_slam_torch.ops.cuda import plicp_fused as cplicp
@@ -203,8 +219,50 @@ def sweep_hector(dev) -> None:
         chec.hector_geometry = chosen
 
 
+CORR_R = (0, 2)  # 0: the row path, 2: the byte path
+CORR_WARPS = (2, 4, 8, 16, 32)
+
+
+def sweep_correlative(dev) -> None:
+    chosen = cresp.response_geometry
+    sms = _dispatch.sm_count(dev)
+    try:
+        for label, args in chip_rates.correlative_passes(dev).items():
+            grid, ys, xs, v, nx, ny, stride = args
+            C, A, N = ys.shape
+            want = corr.sum_windows(*args)
+            W = grid.shape[2]
+            pick = chosen(C, A, W, nx, ny, stride, N, sms)
+            reps = max(5, min(200, int(2e8 // (A * C * nx * ny * N))))
+            for R in CORR_R:
+                warp_set = sorted(set(CORR_WARPS) | (
+                    {pick.threads // 32} if pick.R == R else set()))
+                for warps in warp_set:
+                    try:
+                        geo = cresp.shape_at(C, A, W, nx, ny, stride, N,
+                                             sms, R, warps)
+                    except ValueError:
+                        continue  # no such launch at this shape
+                    cresp.response_geometry = lambda *_a, geo=geo: geo
+                    got = cresp.responses_sliced(*args)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{label} {geo}: not "
+                                             "int32-equal")
+                    ms, _host_us, how = cs.graph_ms(
+                        lambda: cresp.responses_sliced(*args), reps)
+                    print(f"sweep {label} ({C}x{A}x{ny}x{nx} stride "
+                          f"{stride}, {N} beams) path={geo.path} R={R} "
+                          f"warps={warps} blocks="
+                          f"{geo.blocks(C, A, nx, ny, stride)} strips/tile="
+                          f"{geo.strips} slices={geo.slices}"
+                          f"{' (chosen)' if geo == pick else ''}: {ms:.5f} "
+                          f"ms a launch ({how}), int32-equal", flush=True)
+    finally:
+        cresp.response_geometry = chosen
+
+
 SWEEPS = {"nn": sweep_nn, "cr_stream": sweep_cr_stream, "plicp": sweep_plicp,
-          "hector": sweep_hector}
+          "hector": sweep_hector, "correlative": sweep_correlative}
 
 
 def main() -> None:

@@ -235,20 +235,358 @@ def test_kernel_wrapper_runs_the_plain_version_on_the_cpu():
         K.responses_sliced(g8.to("meta"), ys, xs, _t(valid), 16, 16, 2)
 
 
+# --- the redesigned kernel's launch geometry and arithmetic ----------------
+#
+# The pass shapes (lanes, headings, nx = ny, stride, beams, grid width)
+# that the main
+# paths give the kernel: the Karto recipe's front coarse and fine and loop
+# coarse passes, a 16² coarse pass of 8 lanes, a 4,000-beam one, and the
+# outdoor mission's long and short anchor passes, coarse and fine.
+PASS_SHAPES = [(1, 21, 16, 2, 359, 2448), (1, 11, 3, 1, 359, 2448),
+               (8, 21, 81, 2, 359, 648), (8, 21, 16, 2, 359, 648),
+               (1, 81, 16, 2, 4000, 2448), (8, 21, 41, 2, 360, 5096),
+               (8, 11, 3, 1, 360, 5096), (8, 21, 4, 2, 360, 2016),
+               (8, 11, 3, 1, 1500, 2016)]
+
+
+def _block_outputs(geo, C, A, nx, ny, stride):
+    """Every output index each block's threads write, as the kernel's
+    write-out picks them: (block, flat output) pairs. The row path writes
+    its tile's whole rows, the byte path each strip's candidates inside
+    its row."""
+    srow = geo.strips_row(nx, stride)
+    tiles = -(-ny * srow // geo.strips)
+    b = np.arange(C * A * tiles)
+    tile, ca = b % tiles, b // tiles
+    if geo.R == 0:
+        rows = geo.strips // srow
+        y = tile[:, None] * rows + np.arange(rows)  # (blocks, rows)
+        flat = (ca[:, None, None] * nx * ny + y[..., None] * nx
+                + np.arange(nx))
+        own = np.broadcast_to((y < ny)[..., None], flat.shape)
+    else:
+        e = np.arange(geo.strips * geo.R)
+        st = tile[:, None] * geo.strips + e // geo.R  # (blocks, outputs)
+        y, x = st // srow, st % srow * geo.R + e % geo.R
+        own = (y < ny) & (x < nx)
+        flat = ca[:, None] * nx * ny + y * nx + x
+    blk = np.broadcast_to(b.reshape((-1,) + (1,) * (flat.ndim - 1)),
+                          flat.shape)
+    return blk[own], flat[own]
+
+
+def _stage_slots(flags, geo):
+    """The valid beams of one staged round, slot by slot, as the kernel
+    stages them: the row path by class (bucketed after; here in raw
+    order), the byte path by thread t taking beams t, t + threads, ...
+    and a block-wide scan of the threads' counts."""
+    n = np.flatnonzero(flags)
+    if geo.R == 0:
+        return n
+    t, i = n % geo.threads, n // geo.threads
+    return n[np.lexsort((i, t))]
+
+
 @pytest.mark.parametrize("sms", [132, 16])
-@pytest.mark.parametrize("shape", [(1, 21, 256, 359), (1, 11, 9, 359),
-                                   (8, 21, 6561, 359), (8, 21, 256, 359),
-                                   (1, 81, 256, 4000)])
-def test_beam_chunks_cover_the_beams(shape, sms):
-    C, A, n_cand, N = shape
-    chunk = K.beam_chunk(C, A, n_cand, N, sms)
-    assert 1 <= chunk <= K.MAX_CHUNK
-    split = -(-N // chunk)
-    tiles = -(-n_cand // 256)
-    # small lattices are split over blocks to fill the card; large ones not
-    assert C * A * tiles * split >= min(4 * sms, C * A * tiles * N // 32)
-    if C * A * tiles >= 4 * sms and N <= K.MAX_CHUNK:
-        assert chunk == N
+@pytest.mark.parametrize("shape", PASS_SHAPES)
+def test_response_geometry_covers_every_output_and_beam_once(shape, sms):
+    """Every (lane, heading, candidate) is written by exactly one block,
+    and every valid beam of a round is staged in one slot and summed by
+    exactly one slice of each strip; one launch a pass, so each output is
+    written once and nothing needs zeroing."""
+    from tpu_slam_torch import _build
+
+    C, A, n, stride, N, W = shape
+    geo = K.response_geometry(C, A, W, n, n, stride, N, sms)
+    assert geo.threads % 32 == 0 and geo.smem(stride) <= (
+        _build.SMEM_PER_BLOCK)
+    assert geo.strips * geo.slices <= geo.threads <= K.MAX_THREADS
+    if geo.R == 0:  # whole rows of chunks, one slice, strides 1 and 2
+        assert stride in (1, 2) and stride * W % 8 == 0 and geo.slices == 1
+        assert geo.strips % geo.strips_row(n, stride) == 0
+    else:
+        assert geo.R in K.BYTES
+    blk, flat = _block_outputs(geo, C, A, n, n, stride)
+    counts = np.bincount(flat, minlength=C * A * n * n)
+    assert counts.min() == 1 and counts.max() == 1
+    # one block writes one (lane, heading): the lane-major order
+    tiles = geo.blocks(C, A, n, n, stride) // (C * A)
+    assert np.array_equal(blk // tiles, flat // (n * n))
+    # every valid beam of a round in one slot, summed by one slice
+    rng = np.random.default_rng(N)
+    for n0 in range(0, N, K.STAGE):
+        flags = rng.random(min(N, n0 + K.STAGE) - n0) > 0.1
+        beams = _stage_slots(flags, geo)
+        assert np.array_equal(np.sort(beams), np.flatnonzero(flags))
+        count = len(beams)
+        bounds = [k * count // geo.slices for k in range(geo.slices + 1)]
+        summed = np.concatenate([np.arange(bounds[k], bounds[k + 1])
+                                 for k in range(geo.slices)])
+        assert np.array_equal(summed, np.arange(count))
+
+
+def _prmt(lo, hi, sel):
+    """PTX ``prmt.b32`` in its default mode: byte i of the result is byte
+    (sel nibble i & 7) of {hi:lo}, or that byte's sign replicated where
+    the nibble's bit 3 is set."""
+    src = torch.stack([(w >> (8 * b)) & 255 for w in (lo, hi)
+                       for b in range(4)])
+    out = torch.zeros_like(lo)
+    for i in range(4):
+        nib = (sel >> (4 * i)) & 15
+        byte = torch.gather(src, 0, (nib & 7)[None])[0]
+        byte = torch.where((nib & 8) != 0,
+                           torch.where(byte >= 128, 255, 0), byte)
+        out |= byte << (8 * i)
+    return out
+
+
+def _pair_sel(b0, b1):
+    return b0 | (8 | b0) << 4 | b1 << 8 | (8 | b1) << 12
+
+
+def kernel_model(grid, ys, xs, valid, nx, ny, stride, geo, mis=0):
+    """A plain torch model of ``csrc/correlative_response.cu``'s
+    arithmetic, thread by thread: the lane grids as one byte buffer that
+    starts ``mis`` bytes past an 8-byte boundary, the staged origins of
+    the valid beams (invalid ones compacted away), and each path's sums.
+    The row path: each thread's aligned 8-byte chunk of its row (loaded
+    only where it holds bytes of the beam's window), its bytes taken in
+    pairs by PRMT into the 16-bit halves of the sums of the beam's class
+    (the window's start in its first chunk), the halves flushed at the
+    end of each round of STAGE staged beams, and each candidate's sum over
+    the classes. The byte path: a byte load a candidate inside the
+    lattice, pairs in 16-bit halves, the beam slices and their sum.
+    Checks that every chunk loaded holds a byte of the grid and that every
+    output is written once."""
+    C, H, W = grid.shape
+    A, N = ys.shape[1:]
+    R, G, Ks, T = geo.R, geo.strips, geo.slices, geo.threads
+    mem = torch.cat([torch.zeros(mis, dtype=torch.int64),
+                     grid.reshape(-1).to(torch.int64),
+                     torch.zeros(64, dtype=torch.int64)])
+    end = mis + C * H * W  # one past the grid's last byte
+
+    def chunk(addr):
+        """The 2 words of the 8-byte chunk at ``addr``: (P,) each."""
+        assert int((addr % 8).abs().max()) == 0
+        assert int(addr.min()) + 7 >= mis and int(addr.max()) < end, \
+            "an 8-byte chunk that holds no byte of the grid"
+        return [sum(mem[addr + 4 * w + b] << (8 * b) for b in range(4))
+                for w in range(2)]
+
+    srow = geo.strips_row(nx, stride)
+    tiles = -(-ny * srow // G)
+    blocks = C * A * tiles
+    b, t = torch.meshgrid(torch.arange(blocks), torch.arange(T),
+                          indexing="ij")
+    b, t = b.reshape(-1), t.reshape(-1)
+    ca, tile = b // tiles, b % tiles
+    c, a = ca // A, ca % A
+    s, k = t % G, t // G
+    strip = tile * G + s
+    work = (k < Ks) & (strip < ny * srow)
+    y = torch.where(work, strip // srow, 0)
+    j = torch.where(work, strip % srow, 0)
+    base = mis + c * H * W
+    gb = base & ~7
+    rel = (base & 7) + y * stride * W + (j * R * stride if R else 0)
+    ymax, xmax = H - ((ny - 1) * stride + 1), W - ((nx - 1) * stride + 1)
+    origin_all = (ys.to(torch.int64).clamp(0, ymax) * W
+                  + xs.to(torch.int64).clamp(0, xmax))  # (C, A, N)
+    slots = 8 // stride if R == 0 else 1
+    rows_p = torch.arange(len(b))
+
+    def thread_sums():
+        """Each thread's sums: (P, CLASSES, slots) on the row path, (P,
+        R) on the byte path."""
+        sums = torch.zeros((len(b), K.CLASSES, slots), dtype=torch.int64)
+        acc = torch.zeros((len(b), max(R, 1)), dtype=torch.int64)
+        for n0 in range(0, N, K.STAGE):
+            n1 = min(N, n0 + K.STAGE)
+            lists = [torch.as_tensor(_stage_slots(valid[cc, n0:n1].numpy(),
+                                                  geo) + n0)
+                     for cc in range(C)]
+            count = torch.tensor([len(x) for x in lists])[c]
+            table = torch.zeros((C, max(1, int(count.max()))),
+                                dtype=torch.int64)
+            for cc, x in enumerate(lists):
+                table[cc, :len(x)] = x
+            lo, hi = k * count // Ks, (k + 1) * count // Ks
+            lo, hi = torch.where(work, lo, 0), torch.where(work, hi, 0)
+            pk = torch.zeros((len(b), K.CLASSES if R == 0 else 1,
+                              max(slots, R) // 2), dtype=torch.int64)
+            for i in range(int((hi - lo).max())):
+                on = i < hi - lo
+                n = table[c, torch.where(on, lo + i, 0)]
+                off = origin_all[c, a, n] + rel
+                if R == 0:
+                    cls = off & 7
+                    # a chunk is loaded only where it holds window bytes
+                    on = on & (8 * j <= cls + stride * (nx - 1))
+                    addr = gb + (off & ~7) + 8 * j
+                    lo_w, hi_w = chunk(torch.where(on, addr, mis & ~7))
+                    for q in range(slots // 2):
+                        if stride == 2:
+                            p0 = (cls & 1) + 4 * q
+                            sel = _pair_sel(p0, p0 + 2)
+                        else:
+                            sel = torch.full_like(
+                                cls, _pair_sel(2 * q, 2 * q + 1))
+                        pair = _prmt(lo_w, hi_w, sel)
+                        pk[rows_p, cls, q] += torch.where(on, pair, 0)
+                else:
+                    left = nx - j * R
+                    for q in range(R // 2):
+                        for h in range(2):
+                            i_c = 2 * q + h
+                            inside = on & (i_c < left)
+                            addr = torch.where(
+                                inside, gb + off + i_c * stride, mis)
+                            pk[:, 0, q] += torch.where(
+                                inside, mem[addr], 0) << (16 * h)
+                pk &= 0xFFFFFFFF  # a 32-bit register
+            # the halves flushed into int32 at the end of the round
+            if R == 0:
+                sums[..., 0::2] += pk & 0xFFFF
+                sums[..., 1::2] += pk >> 16
+            else:
+                acc[:, 0::2] += pk[:, 0] & 0xFFFF
+                acc[:, 1::2] += pk[:, 0] >> 16
+        return sums if R == 0 else acc
+
+    per_thread = thread_sums()
+    out = torch.zeros(C * A * ny * nx, dtype=torch.int64)
+    written = torch.zeros_like(out)
+
+    def write(idx, val):
+        out.index_put_((idx,), val, accumulate=True)
+        written.index_put_((idx,), torch.ones_like(idx), accumulate=True)
+
+    if R == 0:
+        # candidate i of row y: byte O + stride * i of the row's chunks, in
+        # class O's sums of the chunk's thread
+        sums = per_thread
+        rows = G // srow
+        bb = torch.arange(blocks)[:, None, None]
+        yl = torch.arange(rows)[None, :, None]
+        i = torch.arange(nx)[None, None, :]
+        yy = (bb % tiles) * rows + yl
+        total = torch.zeros(yy.shape[0], rows, nx, dtype=torch.int64)
+        for o in range(K.CLASSES):
+            byte = o + stride * i
+            th = bb * T + yl * srow + (byte >> 3)
+            total += sums[th, o, (byte & 7) >> (stride - 1)]
+        inside = (yy < ny).expand_as(total)
+        idx = ((bb // tiles) * ny * nx + yy * nx + i).expand_as(total)
+        write(idx[inside], total[inside])
+    else:
+        # the slices' sums; each candidate inside its row written once
+        part = torch.zeros((blocks * G, R), dtype=torch.int64)
+        part.index_add_(0, (b * G + s)[work], per_thread[work])
+        part = part.view(blocks, G * R)  # (block, e = strip * R + i)
+        e = torch.arange(G * R)
+        st = (torch.arange(blocks) % tiles)[:, None] * G + e // R
+        yy, xx = st // srow, st % srow * R + e % R
+        own = (yy < ny) & (xx < nx)
+        idx = (torch.arange(blocks) // tiles)[:, None] * ny * nx \
+            + yy * nx + xx
+        write(idx[own], part[own])
+    assert int(written.min()) == 1 and int(written.max()) == 1
+    return out.to(torch.int32).view(C, A, ny * nx)
+
+
+# the seven pass shapes scaled down (lanes, headings, nx, ny, stride, grid
+# side), each at some of the beam counts and lane strides, strides 1-3 and
+# lattices that R does not divide
+MODEL_CASES = [
+    # (C, A, nx, ny, stride, side, N, lane stride N?, warps, R, sms, every
+    # beam at one window?); R 0: the row path (grids side + 3 wide)
+    (1, 3, 16, 16, 2, 61, 359, False, 8, 2, 4, False),  # front coarse
+    (1, 3, 16, 16, 2, 61, 359, False, 2, 0, 4, False),  # the same, rows
+    (1, 3, 3, 3, 1, 40, 359, False, 8, 2, 4, False),  # front fine
+    (3, 2, 21, 21, 2, 69, 1, True, 8, 0, 8, False),  # loop coarse, 1 beam
+    (2, 3, 11, 11, 2, 89, 655, True, 4, 0, 8, False),  # long anchor coarse
+    (2, 2, 3, 3, 1, 50, 656, True, 2, 2, 4, False),  # anchor fine, 2 rounds
+    (2, 3, 4, 4, 2, 40, 1500, False, 8, 2, 4, False),  # short anchor coarse
+    (2, 2, 7, 5, 1, 29, 4000, True, 2, 0, 2, False),  # 4,000 beams
+    (1, 2, 9, 4, 2, 33, 300, False, 4, 2, 4, False),  # odd nx, stride 2
+    (2, 2, 5, 3, 3, 35, 200, True, 2, 2, 4, False),  # stride 3
+    (1, 2, 1, 1, 1, 17, 100, False, 2, 2, 4, False),  # a 1 x 1 lattice
+    (1, 2, 1, 1, 1, 13, 100, False, 2, 0, 4, False),  # the same, rows
+    (2, 2, 19, 6, 1, 45, 700, False, 4, 0, 2, False),  # odd nx, stride 1
+    (1, 1, 24, 24, 2, 61, 1500, False, 2, 0, 1, True),  # one class, 3 rounds
+]
+
+
+@pytest.mark.parametrize("mis", [0, 13])
+@pytest.mark.parametrize("case", MODEL_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[3]}x{c[2]}s{c[4]}n{c[6]}"
+                              for c in MODEL_CASES])
+def test_kernel_model_equals_sum_windows(case, mis):
+    """The kernel's arithmetic, modelled thread by thread, gives
+    ``sum_windows``' int32 numerators bit for bit: starts below 0 and past
+    the far edge (clamped), 10% of the beams invalid (lane stride N: a
+    lane with none valid), grids of values 0..100 and all 100 (the 16-bit
+    halves at their flush bound)."""
+    C, A, nx, ny, stride, side, N, own, warps, R, sms, one = case
+    rng = np.random.default_rng([C, A, nx, stride, N])
+    span_x, span_y = (nx - 1) * stride + 1, (ny - 1) * stride + 1
+    H, W = side, side + 3
+    grid = rng.integers(0, 101, (C, H, W)).astype(np.uint8)
+    if N > K.STAGE:
+        grid[0] = 100  # lane 0's halves at their bound every round
+    ys = rng.integers(-5, H - span_y + 6, (C, A, N)).astype(np.int32)
+    xs = rng.integers(-5, W - span_x + 6, (C, A, N)).astype(np.int32)
+    ys[..., :3], xs[..., :3] = H - span_y, W - span_x  # at the far edge
+    if one:  # every beam in one class of the row path: its halves' bound
+        ys[:], xs[:] = ys[..., :1], xs[..., :1]
+    if own:
+        valid = rng.random((C, N)) > 0.1
+        if C > 1:
+            valid[-1] = False  # a lane with no valid beam
+        flags = torch.as_tensor(valid)
+    else:
+        flags = torch.as_tensor(rng.random(N) > 0.1).expand(C, N)
+    geo = K.shape_at(C, A, W, nx, ny, stride, N, sms, R, warps)
+    args = (torch.as_tensor(grid), torch.as_tensor(ys), torch.as_tensor(xs),
+            flags, nx, ny, stride)
+    got = kernel_model(*args[:4], nx, ny, stride, geo, mis)
+    want = T.sum_windows(*args)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if own and C > 1:
+        assert not got[-1].any()
+
+
+def test_kernel_constants_mirror_the_source():
+    """The limits the wrapper mirrors from csrc/correlative_response.cu,
+    the C entry's argument count, a pass in one launch: no atomics, and an
+    output the kernel writes whole (``torch.empty``, no zeroing)."""
+    import inspect
+    import re
+
+    from tpu_slam_torch import _build
+
+    src = (_build.CSRC / "correlative_response.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("STAGE") == K.STAGE
+    assert K.STAGE * 100 <= 0xFFFF  # the 16-bit halves' flush bound
+    assert const("MAX_THREADS") == K.MAX_THREADS
+    assert const("MIN_THREADS") == K.MIN_THREADS
+    assert const("CLASSES") == K.CLASSES
+    assert tuple(int(r) for r in re.findall(
+        r"if \(R == (\d+)\) return launch<\1, 0>", src)) == K.BYTES
+    assert re.search(r"if \(!rows && R != 2\)", src)
+    assert re.search(r"\batomic\w*\s*\(", src) is None
+    entry = re.search(r'extern "C" int correlative_response_launch\((.*?)\)'
+                      r' \{', src, re.S)[1]
+    assert len(entry.split(",")) == len(
+        _build.SIGNATURES["correlative_response"][1]) == 19
+    body = inspect.getsource(K.responses_sliced)
+    assert "torch.empty(" in body and "zeros" not in body
 
 
 def test_find_valid_points_flags_are_equal():

@@ -75,9 +75,10 @@ SIGNATURES = {
     ),
     "correlative_response": (
         "correlative_response_launch",
-        # grid, ys, xs, valid, out, C, H, W, A, N, nx, ny, stride, chunk,
-        # valid's lane stride, stream
-        [_VP] * 5 + [_I] * 10 + [_VP],
+        # grid, ys, xs, valid, out, C, H, W, A, N, nx, ny, stride, valid's
+        # lane stride, candidates a thread, threads, strips a tile, beam
+        # slices, stream
+        [_VP] * 5 + [_I] * 13 + [_VP],
     ),
     "nn": (
         "nn_launch",

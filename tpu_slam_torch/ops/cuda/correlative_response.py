@@ -9,25 +9,106 @@ the window starts that ``ops/correlative.window_starts`` computes once.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tpu_slam_torch import _build, _dispatch
 from tpu_slam_torch.ops import correlative
 from tpu_slam_torch.ops.cuda.plicp_fused import _check
 
-MAX_CHUNK = 1024  # csrc/correlative_response.cu
-BEAMS_MIN = 32  # fewest beams a block sums when the beams are split
+# csrc/correlative_response.cu
+STAGE = 512  # valid beams staged a round, summed in 16-bit halves
+MIN_THREADS, MAX_THREADS = 64, 1024
+CLASSES = 8  # the row path: a window's start in its first 8-byte chunk
+BYTES = (2,)  # the byte path's candidates a thread
+# the wrapper's choice (chip_sweep.py correlative)
+ROW_WARPS = 8  # a block of the row path
+BYTE_WARPS = 4  # a block of the byte path
+BLOCKS_PER_SM = 2  # the byte path's blocks of BYTE_WARPS an SM, at least
+SLICE_BEAMS = 4  # fewest beams a slice of the byte path sums
 
 
-def beam_chunk(C: int, A: int, n_cand: int, N: int, sms: int) -> int:
-    """Beams per thread block: all of them when the lanes, angles and
-    candidate tiles already give a card of ``sms`` SMs ~4 blocks per SM,
-    else split so they do (at least BEAMS_MIN beams per block)."""
-    tiles = -(-n_cand // 256)
-    split = -(-4 * sms // (C * A * tiles))
-    split = max(1, min(split, -(-N // BEAMS_MIN)))
-    split = max(split, -(-N // MAX_CHUNK))
-    return -(-N // split)
+@dataclasses.dataclass(frozen=True)
+class ResponseGeometry:
+    """A launch of the response kernel. R = 0: the row path (a thread an
+    aligned 8-byte chunk of a lattice row's window, ``strips`` = whole
+    rows of chunks a block, one slice); R = 2: the byte path (R
+    candidates a thread, ``strips`` strips of R candidates a block's
+    tile, ``slices`` beam slices, strips × slices ≤ threads)."""
+    R: int
+    threads: int
+    strips: int
+    slices: int
+
+    @property
+    def path(self) -> str:
+        return "bytes" if self.R else "rows"
+
+    def strips_row(self, nx: int, stride: int) -> int:
+        if self.R:
+            return -(-nx // self.R)
+        return (7 + (nx - 1) * stride) // 8 + 1
+
+    def blocks(self, C: int, A: int, nx: int, ny: int, stride: int) -> int:
+        return C * A * -(-ny * self.strips_row(nx, stride) // self.strips)
+
+    def smem(self, stride: int) -> int:
+        """Bytes of shared memory a block takes (csrc's launch): the
+        staged origins, then the row path's class sums or the byte path's
+        slice partials."""
+        if not self.R:
+            return 4 * (STAGE + self.threads * CLASSES * (8 // stride))
+        parts = self.slices * ((self.strips * self.R) | 1)
+        return 4 * (STAGE + (parts if self.slices > 1 else 0))
+
+
+def shape_at(C: int, A: int, W: int, nx: int, ny: int, stride: int, N: int,
+             sms: int, R: int, warps: int) -> ResponseGeometry:
+    """The launch at R candidates a thread (0: the row path) and ``warps``
+    a block, for grids W bytes wide. The row path (strides 1 and 2, rows
+    of the grid a multiple of 8 bytes apart at the stride, so that a
+    window's class is the same in every row) takes as many whole rows as
+    the block holds. The byte path splits a block's beams into as many
+    slices (of at least SLICE_BEAMS beams) as give the pass
+    BLOCKS_PER_SM × ``sms`` blocks' threads, and cuts the lattice into
+    tiles of the strips the rest of the threads hold. Raises where the
+    kernel has no such launch."""
+    threads = 32 * warps
+    if not MIN_THREADS <= threads <= MAX_THREADS:
+        raise ValueError(f"{warps} warps: outside the kernel's block sizes")
+    if R == 0:
+        geo = ResponseGeometry(0, threads, 0, 1)
+        per_row = geo.strips_row(nx, stride)
+        if stride not in (1, 2) or stride * W % 8 or per_row > threads:
+            raise ValueError(f"no row-path launch at stride {stride}, rows "
+                             f"of {W} bytes, {per_row} chunks a row, "
+                             f"{threads} threads")
+        geo = ResponseGeometry(0, threads, threads // per_row * per_row, 1)
+        if geo.smem(stride) > _build.SMEM_PER_BLOCK:
+            raise ValueError(f"{warps} warps: the row path's class sums "
+                             "exceed a block's shared memory")
+        return geo
+    if R not in BYTES:
+        raise ValueError(f"no kernel instance for R={R}")
+    strips = ny * -(-nx // R)
+    most = -(-N // SLICE_BEAMS)
+    slices = BLOCKS_PER_SM * sms * threads // (C * A * strips)
+    slices = max(1, min(threads, most, slices))
+    tile = max(1, min(strips, threads // slices))
+    return ResponseGeometry(R, threads, tile, min(threads // tile, most))
+
+
+def response_geometry(C: int, A: int, W: int, nx: int, ny: int,
+                      stride: int, N: int, sms: int) -> ResponseGeometry:
+    """The wrapper's launch: the row path (ROW_WARPS warps) where it runs,
+    the rows span 32 bytes or more and their chunks fill the card twice
+    over; else the byte path at 2 candidates a thread, BYTE_WARPS warps."""
+    if stride in (1, 2) and stride * W % 8 == 0 and nx * stride >= 32:
+        per_row = (7 + (nx - 1) * stride) // 8 + 1
+        if C * A * ny * per_row >= 2 * sms * 32 * ROW_WARPS:
+            return shape_at(C, A, W, nx, ny, stride, N, sms, 0, ROW_WARPS)
+    return shape_at(C, A, W, nx, ny, stride, N, sms, 2, BYTE_WARPS)
 
 
 def responses_sliced(grid, ys, xs, beam_valid, n_x: int, n_y: int,
@@ -58,14 +139,14 @@ def responses_sliced(grid, ys, xs, beam_valid, n_x: int, n_y: int,
             f"beams contiguous, got {beam_valid.dtype} "
             f"{tuple(beam_valid.shape)} strides {beam_valid.stride()} on "
             f"{beam_valid.device}")
-    out = torch.zeros((C, A, n_y * n_x), dtype=torch.int32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = response_geometry(C, A, W, n_x, n_y, stride, N,
+                            _dispatch.sm_count(dev))
+    out = torch.empty((C, A, n_y * n_x), dtype=torch.int32, device=dev)
     _build.launch(
         "correlative_response", grid.data_ptr(), ys.data_ptr(),
         xs.data_ptr(), beam_valid.data_ptr(), out.data_ptr(), C, H, W, A, N,
-        n_x, n_y, stride, beam_chunk(C, A, n_x * n_y, N, sms),
-        beam_valid.stride(0),
-        torch.cuda.current_stream(dev).cuda_stream,
+        n_x, n_y, stride, beam_valid.stride(0), geo.R, geo.threads,
+        geo.strips, geo.slices, torch.cuda.current_stream(dev).cuda_stream,
     )
     _dispatch.count_launch("correlative_response")
     return out
