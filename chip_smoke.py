@@ -95,9 +95,10 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      Every match must run the correlative kernel. Every solve takes the
      dense LM and no LM kernel: the graphs (≤ 126 nodes, 127 edges) fail
      the reference's shape test for its fused LM, as on its TPU. The ATE
-     must stay ≤ 0.01 m; then its scans/s (median of 3 runs after the
-     counted one, which warms it), the stage timer, and one run under
-     ``torch.profiler``;
+     must stay ≤ 0.01 m; then ``karto_map`` of the counted run (its wall,
+     its cells; int8-equal to the CPU's map from the same corrected
+     poses), its scans/s (median of 3 runs after the counted one, which
+     warms it), the stage timer, and one run under ``torch.profiler``;
  14b. the outdoor offline mission, with the launch counters zeroed
      first: benchmarks/bench_outdoor.py's 1-lap recipe (3,234 scans of
      360 beams, ``preset("karto_outdoor")``, no cut) through
@@ -108,6 +109,24 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      PL-ICP and correlative kernels launched); then the correlative
      kernel int32 for int32 against its plain version on one anchor
      group of each level, coarse and fine pass, at the final poses;
+ 14c. the online outdoor run, with the launch counters zeroed first:
+     the same recipe through ``KartoSLAM.run`` and ``flush`` once
+     (bench_outdoor.py --online, the synchronous back end): its wall and
+     scans/s, accepted scans, closures, the solves by route (each the
+     route ``_route`` gives for its size; graphs past 128 nodes take the
+     PCG-LM or CR-LM kernels), the stage timer, launches and the ATE
+     (≤ 0.05 m and below the raw odometry's; ≥ 1 closure, ≥ 1 LM
+     kernel launch); then the correlative kernel int32 for int32 on a
+     front coarse, a front fine and a loop coarse pass recorded from the
+     final state, the LM kernel of the largest kernel solve against its
+     plain version on that graph, ``karto_map`` of the result (its wall
+     and cells; on the card and the CPU int8-equal on a stride of the
+     scans whose CPU run takes ~25 s) and a profile of the run's first
+     100 scans;
+ 14d. GMapping at full width (examples/run_gmapping.py: 352 scans, the
+     1,024² grid): hits and visits equal to the CPU's run, cell means
+     within 1e-5 relative, the same map, > 200 occupied and > 10,000
+     free cells; its scans/s (median of 3 runs after a warm one);
  15. the NN kernel against its plain version
      (``ops/matching.nearest_neighbor_direct``), bit for bit in indices
      and distances, at the odometry's shape (1 × 360 × 360) and the
@@ -160,7 +179,8 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      recipe: every match a PL-ICP launch, the corrected chain's ATE under
      the raw one's;
  24. one JSON line with every kernel (its launches, the PL-ICP and
-     correlative kernels' counting the outdoor mission's too, its error
+     correlative kernels' counting the outdoor mission's too, the
+     correlative and LM kernels' the online outdoor run's, its error
      against its plain version, both times, and its bound: the larger of
      bytes over 3.35 TB/s and operations over 67 T/s in float32, or 16.7
      T/s for the correlative kernel's int32 adds), then ``{"ok": true,
@@ -191,8 +211,10 @@ from tpu_slam_torch.convert import solver_from_numpy
 from tpu_slam_torch.data import simulator as sim
 from tpu_slam_torch.data.scan import Scan, index_scan, make_scan
 from tpu_slam_torch.models import offline
+from tpu_slam_torch.models.gmapping import GMapping
 from tpu_slam_torch.models.hector_slam import HectorSLAM, _beams
 from tpu_slam_torch.models.icp_odometry import ICPOdometry
+from tpu_slam_torch.models.karto import occupancy as occ
 from tpu_slam_torch.models.karto.pipeline import KartoSLAM
 from tpu_slam_torch.models.offline import offline_slam
 from tpu_slam_torch.models.plicp_odometry import (
@@ -227,7 +249,9 @@ from tpu_slam_torch.solver import banded, cr_lm, pcg_lm
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
 from tpu_slam_torch.solver.cr_stream import stream_schedule, streamed_cr_lm
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
-from tpu_slam_torch.solver.pose_graph import _route, _sq_min_delta
+from tpu_slam_torch.solver.pose_graph import (
+    PoseGraphSolver, _route, _sq_min_delta,
+)
 from tpu_slam_torch.utils.evaluation import ate_rmse
 from tpu_slam_torch.utils.profiling import StageTimer
 
@@ -255,6 +279,15 @@ OUTDOOR_WARM_SCANS = 600
 OUTDOOR_MIN = {"skip edges": 1, "anchors": 1, "loops": 4}
 # the reference's run of the Karto recipe at the full width on the CPU
 KARTO_REF = {"accepted": 126, "closures": 2, "ate": 0.00577}
+# the 1-lap online outdoor run (bench_outdoor.py --online): the reference's
+# accepted scans, solves and ATE, and the ATE bar, 2x that ATE
+OUTDOOR_ONLINE_REF = {"accepted": 1149, "solves": 61, "ate": 0.024}
+OUTDOOR_ONLINE_ATE_MAX = 0.05  # m
+OUTDOOR_ONLINE_PROFILE_SCANS = 100  # the profiled window of the run
+MAP_CPU_BUDGET_S = 25.0  # the CPU run the outdoor map is held to (≤ 30 s)
+GMAPPING_MIN = {"occupied": 200, "free": 10_000}  # examples/run_gmapping.py
+GMAPPING_MEANS_RTOL = 1e-5
+GMAPPING_MEANS_ATOL = 1e-6  # m, where a cell's hits straddle 0
 # the lesson front-ends: examples/run_plicp_odometry.py's recipe (200 scans
 # of 360 beams), and the reference's CPU runs of it (tpu_slam on the CPU,
 # whose NN takes the expanded form; reproduced by the slow test
@@ -574,11 +607,16 @@ def bench_graph(n: int = 1024):
     return np.asarray(init), [(i, j, m, info) for i, j, m in edges]
 
 
-def phase_cr(dev) -> dict:
-    cfg = SolverConfig()
-    poses, edges = bench_graph()
-    spec, pT8, slots = solver_from_numpy(cfg, poses, edges, dev).direct_inputs()
-    kw = dict(W=spec.W, K=spec.K, iters=cfg.max_iterations, sq_min_delta=1e-8)
+def cr_compare(label: str, dev, cfg, poses, edges, sq_min_delta) -> dict:
+    """The single-launch CR-LM kernel against its plain version on a
+    graph's ``direct_inputs``: poses within LM_POSE_TOL, final χ² within
+    LM_COST_RTOL. Prints both times, the dependent steps (LM iterations ×
+    levels) and µs a step, and the bound; returns them with
+    max_abs_err."""
+    spec, pT8, slots = solver_from_numpy(cfg, poses, edges,
+                                         dev).direct_inputs()
+    kw = dict(W=spec.W, K=spec.K, iters=cfg.max_iterations,
+              sq_min_delta=sq_min_delta)
 
     def kern():
         return fused_cr_lm(pT8, slots, cfg.initial_lambda, **kw)
@@ -596,7 +634,7 @@ def phase_cr(dev) -> dict:
     iters = int(k[3, 3])
     work = cr_work(spec, pT8, slots, len(edges), iters)
     steps = cr_steps(spec.K, iters)
-    print(f"cr_lm: nodes={len(poses)} W={spec.W} K={spec.K} geometry "
+    print(f"{label}: nodes={len(poses)} W={spec.W} K={spec.K} geometry "
           f"{cr_geometry(spec.W, spec.K)} pose max|d|={dpose:.3e} cost0 "
           f"{float(k[3, 0]):.6g} cost kernel {kc:.6g} plain {pc:.6g} iters "
           f"kernel {iters} plain {int(p[3, 3])} kernel {ms:.3f} ms plain "
@@ -604,8 +642,15 @@ def phase_cr(dev) -> dict:
           f"({work['bound_by']}); dependent steps {steps} (LM iterations × "
           f"levels), {ms / steps * 1e3:.3f} µs a step", flush=True)
     if not ok:
-        raise AssertionError("CR-LM kernel disagrees with its plain version")
+        raise AssertionError(f"{label}: the CR-LM kernel disagrees with its "
+                             "plain version")
     return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def phase_cr(dev) -> dict:
+    """The CR-LM kernel against its plain version on the 1,024-node bench
+    pose graph."""
+    return cr_compare("cr_lm", dev, SolverConfig(), *bench_graph(), 1e-8)
 
 
 def cr_steps(K: int, iters: int) -> int:
@@ -1944,6 +1989,7 @@ def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
                              "the reference's do on its TPU at this size")
     print("karto stage timer (counted run):\n" + slam.timer.report(),
           flush=True)
+    karto_map_check("karto online map", slam, dev)
     # the counted run warmed the path: 3 timed runs follow it
     walls = [karto_run(cfg, scans, odom, dev)[2] for _ in range(3)]
     rates = sorted(T / w for w in walls)
@@ -2090,6 +2136,324 @@ def phase_outdoor_main(dev) -> dict:
     for label, args in anchor_passes(cfg, scans, res.poses):
         response_compare(label, *args, reps=(20, 1))
     return launches
+
+
+# --- the online outdoor run and the maps ----------------------------------
+
+
+_SOLVE_ROUTES = {"dense": "_compute_dense", "pcg": "_compute_pcg",
+                 "direct": "_compute_direct", "host_f64": "_compute_host_f64"}
+
+
+@contextlib.contextmanager
+def solve_routes():
+    """Inside the block each solve a ``PoseGraphSolver`` dispatches is
+    noted where it takes its route: [(route, poses (M, 3) it starts from,
+    edges as ``solver_from_numpy`` takes them)]. The note copies the
+    graph's lists and nothing else; the solve runs as it would."""
+    solves = []
+    olds = {name: getattr(PoseGraphSolver, name)
+            for name in _SOLVE_ROUTES.values()}
+
+    def noting(route, fn):
+        def run(self, *args, **kw):
+            solves.append((route, np.array(self._poses), list(self._edges)))
+            return fn(self, *args, **kw)
+        return run
+
+    try:
+        for route, name in _SOLVE_ROUTES.items():
+            setattr(PoseGraphSolver, name, noting(route, olds[name]))
+        yield solves
+    finally:
+        for name, fn in olds.items():
+            setattr(PoseGraphSolver, name, fn)
+
+
+def route_counts(solves, dev, cfg) -> dict:
+    """The solves by route, each held to the route ``_route`` gives for its
+    size and its band spec (RCM from its edges, no cache)."""
+    counts = dict.fromkeys(_SOLVE_ROUTES, 0)
+    for route, poses, edges in solves:
+        n, e = len(poses), len(edges)
+        ei = np.array([x[0] for x in edges], np.int64)
+        ej = np.array([x[1] for x in edges], np.int64)
+        want = _route(n, e, dev, cfg, lambda: banded.prepare_banded(
+            ei, ej, n, cfg.direct_max_bandwidth))
+        if route != want:
+            raise AssertionError(f"a solve of {n} nodes and {e} edges took "
+                                 f"{route}, not {want}")
+        counts[route] += 1
+    return counts
+
+
+def lm_final_compare(label: str, dev, cfg, solves) -> None:
+    """The LM kernel that took the run's largest kernel solve against its
+    plain version on that solve's graph and starting poses, with
+    ``phase_pcg``'s bars."""
+    route, poses, edges = max(
+        (s for s in solves if s[0] in ("pcg", "direct")),
+        key=lambda s: len(s[1]))
+    solver = solver_from_numpy(cfg, poses, edges, dev)
+    if route == "pcg":
+        pcg_compare(f"{label} pcg_lm", dev, *pcg_args(dev, solver))
+    elif solver._band_spec().K <= cr_lm.K_MAX:
+        cr_compare(f"{label} cr_lm", dev, cfg, poses, edges,
+                   _sq_min_delta(cfg.convergence_delta))
+    else:
+        streamed_compare(f"{label} cr_stream", dev, poses, edges)
+
+
+def recorded_passes(slam) -> list:
+    """Three correlative passes from a mapper's final state, recorded where
+    the matcher would launch the kernel (the plain version answers): the
+    front coarse and fine passes of its last scan against its running
+    buffer, and the loop coarse pass of that scan against the chains in
+    the loop search's range (the near-linked ones too, so that a closed
+    loop still has candidates), 8 lanes at most. [(label, the kernel's
+    arguments)]."""
+    rec = slam.scans[-1]
+    sid = rec.state_id
+    running = [i for i in slam.sensors[rec.sensor].running if i != sid]
+    _near, in_range = slam._loop_gather_state(sid)
+    chains, start = [], 0
+    while len(chains) < 8:
+        chain, start = slam._find_possible_loop(
+            sid, start, rec.sensor, gather_state=(set(), in_range))
+        if not chain:
+            break
+        chains.append(chain)
+    if not chains:
+        raise AssertionError("no loop candidate chain for the last scan")
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return corr.sum_windows(*args)
+
+    with patched(corr_response, "responses_sliced", recording):
+        slam._match(slam.front_matcher, rec, running, rec.corrected_pose)
+        slam._match_chains(slam.loop_matcher, rec, chains,
+                           rec.corrected_pose, do_penalize=False,
+                           do_fine=False)
+    if len(calls) != 3:
+        raise AssertionError(f"{len(calls)} response passes recorded, not "
+                             "a front coarse, a front fine and a loop coarse")
+    return [(f"correlative online outdoor {name}", args) for name, args in
+            zip(("front coarse", "front fine", "loop coarse"), calls)]
+
+
+def map_counts(m: np.ndarray) -> str:
+    return (f"{(m == 100).sum()} occupied / {(m == 0).sum()} free / "
+            f"{(m == -1).sum()} unknown")
+
+
+def karto_map_check(label: str, slam, dev, budget_s=None) -> None:
+    """``karto_map`` of a mapper on the card: its wall (median of 3 after a
+    warm call) and cell counts. Then ``occupancy_from_scans`` on the card
+    against the CPU, int8 for int8, on the same grid and corrected poses:
+    every scan, or with ``budget_s`` every stride-th scan, the stride
+    chosen from a CPU run of 8 scans so that the CPU run takes about
+    ``budget_s``."""
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        m, grid = occ.karto_map(slam)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(walls[1:])[1]
+    if m.shape != (grid.size_y, grid.size_x) or not (m == 100).any():
+        raise AssertionError(f"{label}: the map has no occupied cell")
+    poses, pts, ranges = occ._map_inputs(slam)
+    T = len(poses)
+    sc = slam.cfg.scan
+    kw = dict(range_threshold=sc.range_threshold, min_range=sc.range_min,
+              max_range=sc.range_max)
+
+    def cpu_map(sel):
+        t0 = time.perf_counter()
+        out = occ.occupancy_from_scans(grid, poses[sel], pts[sel],
+                                       ranges[sel], device="cpu", **kw)
+        return out, time.perf_counter() - t0
+
+    stride = 1
+    if budget_s is not None:
+        _m, s8 = cpu_map(slice(0, T, max(1, T // 8)))
+        per_scan = s8 / len(range(0, T, max(1, T // 8)))
+        stride = max(1, int(np.ceil(T * per_scan / budget_s)))
+    sel = slice(0, T, stride)
+    want, cpu_s = cpu_map(sel)
+    got = m if stride == 1 else occ.occupancy_from_scans(
+        grid, poses[sel], pts[sel], ranges[sel], device=dev, **kw)
+    split = int((got != want).sum())
+    print(f"{label}: karto_map of {T} scans x {pts.shape[1]} beams "
+          f"({gm.karto_max_steps(grid, sc.range_threshold)} steps a ray) on "
+          f"a {grid.size_x}x{grid.size_y} grid at {grid.resolution} m: "
+          f"{ms:.1f} ms wall (median of 3 after a warm call; "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms), {map_counts(m)}; "
+          f"held to the CPU's occupancy_from_scans on every {stride}. scan "
+          f"({len(range(0, T, stride))} scans, CPU {cpu_s:.2f} s): int8 equal "
+          f"{split == 0} ({split} cells differ; {map_counts(want)})",
+          flush=True)
+    if split:
+        raise AssertionError(f"{label}: the card's map differs from the "
+                             "CPU's")
+
+
+def outdoor_online_run(cfg, scans, odom, dev):
+    """``KartoSLAM.run`` then ``flush``: (mapper, accepted indices,
+    wall s)."""
+    slam = KartoSLAM(cfg, device=dev)
+    t0 = time.perf_counter()
+    acc = slam.run(scans, odom)
+    slam.flush()
+    torch.cuda.synchronize()
+    return slam, acc, time.perf_counter() - t0
+
+
+def phase_outdoor_online(dev, recipe=outdoor_recipe) -> dict:
+    """The online outdoor run (bench_outdoor.py --online, 1 lap) at full
+    width, with the launch counters zeroed first: ``KartoSLAM.run`` and
+    ``flush`` over the recipe's 3,234 scans under
+    ``preset("karto_outdoor")`` and its synchronous back end, once. Its
+    wall and scans/s, the accepted scans, closures and solves by route
+    (each held to ``_route``'s route for its size), the stage timer, the
+    launches and the ATE against the raw odometry's; then the correlative
+    kernel on three passes recorded from the final state, the LM kernel
+    that took the largest kernel solve against its plain version on that
+    graph, ``karto_map`` of the result held to the CPU on a stride of its
+    scans, and a profile of the run's first scans. Returns the run's
+    launches. A ``[time]`` line after each step gives its wall."""
+    clock = PhaseClock()
+    cfg, scans, odom, gt = recipe(dev)
+    clock("outdoor online: recipe")
+    if cfg.karto.async_loop_closure:
+        raise AssertionError("the online outdoor run takes the synchronous "
+                             "back end")
+    T = len(gt)
+    _dispatch.reset_launches()
+    with solve_routes() as solves:
+        slam, acc, wall = outdoor_online_run(cfg, scans, odom, dev)
+    launches = dict(_dispatch.LAUNCHES)
+    clock("outdoor online: run")
+    est = slam.trajectory()
+    ate = float(ate_rmse(est, gt[acc]))
+    ate_odom = float(ate_rmse(odom[acc], gt[acc]))
+    routes = route_counts(solves, dev, slam.solver.cfg)
+    clock("outdoor online: routes checked")
+    big = max((len(p), len(e)) for _r, p, e in solves) if solves else (0, 0)
+    lm = {k: launches[k] for k in ("pcg_lm", "cr_lm", "cr_stream")}
+    ref = OUTDOOR_ONLINE_REF
+    print(f"outdoor online main path: scans={T} wall {wall:.2f} s "
+          f"({T / wall:.1f} scans/s offered, one run) accepted {len(acc)} "
+          f"(reference {ref['accepted']}) closures {slam.loop_closures} "
+          f"solves {len(solves)} (reference {ref['solves']}) by route "
+          f"{routes}, the largest {big[0]} nodes {big[1]} edges; LM kernel "
+          f"launches {lm}; ATE {ate:.5f} m (reference {ref['ate']} m, bar "
+          f"{OUTDOOR_ONLINE_ATE_MAX} m) raw odometry {ate_odom:.4f} m; "
+          f"launches {launches}", flush=True)
+    print("outdoor online stage timer:\n" + slam.timer.report(), flush=True)
+    if est.shape != (len(acc), 3) or not np.all(np.isfinite(est)):
+        raise AssertionError("online outdoor poses are not finite")
+    if not (ate <= OUTDOOR_ONLINE_ATE_MAX and ate < ate_odom):
+        raise AssertionError(f"online outdoor ATE {ate:.5f} m: above "
+                             f"{OUTDOOR_ONLINE_ATE_MAX} m or the odometry's")
+    if slam.loop_closures < 1:
+        raise AssertionError("the online outdoor run closed no loop")
+    if launches["correlative_response"] == 0:
+        raise AssertionError("the online outdoor run launched no "
+                             "correlative kernel")
+    if (lm["pcg_lm"] != routes["pcg"]
+            or lm["cr_lm"] + lm["cr_stream"] != routes["direct"]):
+        raise AssertionError("the LM kernel launches do not match the "
+                             "solves' routes")
+    if sum(lm.values()) == 0:
+        raise AssertionError("no online solve launched an LM kernel")
+    for label, args in recorded_passes(slam):
+        response_compare(label, *args, reps=(20, 1))
+    clock("outdoor online: correlative passes")
+    lm_final_compare("outdoor online final graph", dev, slam.solver.cfg,
+                     solves)
+    clock("outdoor online: LM kernel")
+    karto_map_check("outdoor online map", slam, dev,
+                    budget_s=MAP_CPU_BUDGET_S)
+    clock("outdoor online: map")
+    n = OUTDOOR_ONLINE_PROFILE_SCANS
+    timer = None
+
+    def prefix():
+        nonlocal timer
+        s = KartoSLAM(cfg, device=dev)
+        s.run(index_scan(scans, slice(0, n)), odom[:n])
+        timer = s.timer
+
+    print(profile_line(f"outdoor online run (first {n} scans)",
+                       *device_profile(prefix)), flush=True)
+    print("outdoor online profiled window's stage timer:\n"
+          + timer.report(), flush=True)
+    clock("outdoor online: profile")
+    return launches
+
+
+def gmapping_recipe():
+    """examples/run_gmapping.py's recipe at the full ``default_config()``
+    (360 beams, 12 m, the 1,024² grid at 0.05 m): the corridor loop (arm
+    9 m, width 2.6 m, 0.9 m/s, 352 scans), noise 0.004, seed 6, at the
+    true poses. Returns (cfg, ranges, float32 poses)."""
+    cfg = default_config()
+    traj = sim.loop_trajectory(arm=9.0, width=2.6, speed=0.9)
+    world = sim.corridor_loop_world(arm=9.0, width=2.6)
+    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
+                                seed=6)
+    return cfg, seq.ranges, seq.gt_poses.astype(np.float32)
+
+
+def gmapping_run(cfg, ranges, poses, dev):
+    """One map: (GMapping, int8 map, wall s of the scans and the map's
+    read)."""
+    scans = make_scan(ranges, cfg.scan, device=dev)
+    t0 = time.perf_counter()
+    gmap = GMapping(cfg, device=dev)
+    gmap.run(scans, poses)
+    m = gmap.to_ros_map()
+    return gmap, m, time.perf_counter() - t0
+
+
+def phase_gmapping(dev) -> None:
+    """GMapping at full width on the card against the same run on the CPU:
+    hits and visits equal, the cell means within GMAPPING_MEANS_RTOL
+    relative and GMAPPING_MEANS_ATOL (the card's float atomics add in
+    another order), the same map, and the
+    example's bars; then its scans/s, the median of 3 runs after a warm
+    one."""
+    cfg, ranges, poses = gmapping_recipe()
+    T = len(poses)
+    gmap, m, _wall = gmapping_run(cfg, ranges, poses, dev)
+    walls = [gmapping_run(cfg, ranges, poses, dev)[2] for _ in range(3)]
+    cpu, cm, cpu_s = gmapping_run(cfg, ranges, poses, "cpu")
+    hits_eq = torch.equal(gmap.hits.cpu(), cpu.hits)
+    visits_eq = torch.equal(gmap.visits.cpu(), cpu.visits)
+    means, cmeans = gmap.cell_means(), cpu.cell_means()
+    dmeans = float(np.max(np.abs(means - cmeans)
+                          - GMAPPING_MEANS_RTOL * np.abs(cmeans)
+                          - GMAPPING_MEANS_ATOL))
+    rates = sorted(T / w for w in walls)
+    found = {"occupied": int((m == 100).sum()), "free": int((m == 0).sum())}
+    print(f"gmapping: {T} scans x {cfg.scan.num_beams} beams on a "
+          f"{cfg.grid.size_x}x{cfg.grid.size_y} grid: scans/s median "
+          f"{rates[1]:.1f} (min {rates[0]:.1f} max {rates[2]:.1f}) over 3 "
+          f"runs after a warm one (each with the map's read); {map_counts(m)}"
+          f"; against the CPU run ({cpu_s:.2f} s): hits equal {hits_eq} "
+          f"visits equal {visits_eq} map equal {np.array_equal(m, cm)} cell "
+          f"means max(|d| - {GMAPPING_MEANS_RTOL} |cpu| - "
+          f"{GMAPPING_MEANS_ATOL} m) {dmeans:.3e}",
+          flush=True)
+    if not (hits_eq and visits_eq and np.array_equal(m, cm)
+            and dmeans <= 0.0):
+        raise AssertionError("GMapping on the card differs from the CPU")
+    for what, least in GMAPPING_MIN.items():
+        if found[what] <= least:
+            raise AssertionError(f"GMapping: {found[what]} {what} cells, "
+                                 f"not more than {least}")
 
 
 # --- the lesson front-ends and the NN kernel ------------------------------
@@ -2922,6 +3286,10 @@ def main() -> None:
     clock("online Karto")
     outdoor_launches = phase_outdoor_main(dev)
     clock("outdoor mission")
+    online_launches = phase_outdoor_online(dev)
+    clock("online outdoor run")
+    phase_gmapping(dev)
+    clock("GMapping")
     nn = phase_nn(dev)
     clock("NN kernel")
     nn_launches = phase_lesson_main(dev)
@@ -2939,15 +3307,16 @@ def main() -> None:
         {"name": "cr_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_lm.cu",
          "replaces": "tpu_slam/solver/pallas_cr_lm.py:573",
-         "launches": launches["cr_lm"], **cr},
+         "launches": launches["cr_lm"] + online_launches["cr_lm"], **cr},
         {"name": "cr_stream", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_stream.cu",
          "replaces": "tpu_slam/solver/cr_stream.py:529",
-         "launches": large_launches["cr_stream"], **stream},
+         "launches": large_launches["cr_stream"]
+         + online_launches["cr_stream"], **stream},
         {"name": "pcg_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/pcg_lm.cu",
          "replaces": "tpu_slam/solver/pallas_lm.py:384",
-         "launches": launches["pcg_lm"], **pcg},
+         "launches": launches["pcg_lm"] + online_launches["pcg_lm"], **pcg},
         {"name": "hector_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/hector_fused.cu",
          "replaces": "tpu_slam/ops/pallas/hector_fused.py:269",
@@ -2956,7 +3325,8 @@ def main() -> None:
          "source": "tpu_slam_torch/csrc/correlative_response.cu",
          "replaces": "tpu_slam/ops/pallas/correlative_response.py:160",
          "launches": karto_launches["correlative_response"]
-         + outdoor_launches["correlative_response"], **resp},
+         + outdoor_launches["correlative_response"]
+         + online_launches["correlative_response"], **resp},
         {"name": "nn", "route": "cuda", "source": "tpu_slam_torch/csrc/nn.cu",
          "replaces": "tpu_slam/ops/pallas/nn.py:50",
          "launches": nn_launches, **nn},

@@ -1,8 +1,8 @@
 """The port's own copies of the JAX package's host modules (config,
 geometry_np, data/simulator, solver/banded, utils/evaluation,
-utils/profiling, utils/events) compute what the JAX package's modules compute, on the
-same seeded inputs. ``port_config`` is the tests' one way to hand both
-packages the same settings."""
+utils/profiling, utils/events, utils/map_io) compute what the JAX
+package's modules compute, on the same seeded inputs. ``port_config`` is
+the tests' one way to hand both packages the same settings."""
 
 import dataclasses
 import pathlib
@@ -17,6 +17,7 @@ from tpu_slam.data import simulator as jsim
 from tpu_slam.solver import banded as jbanded
 from tpu_slam.utils import evaluation as jeval
 from tpu_slam.utils import events as jevents
+from tpu_slam.utils import map_io as jmap_io
 from tpu_slam_torch import config as tconfig
 from tpu_slam_torch import geometry_np as tgnp
 from tpu_slam_torch.convert import config_from_dict
@@ -24,6 +25,7 @@ from tpu_slam_torch.data import simulator as tsim
 from tpu_slam_torch.solver import banded as tbanded
 from tpu_slam_torch.utils import evaluation as teval
 from tpu_slam_torch.utils import events as tevents
+from tpu_slam_torch.utils import map_io as tmap_io
 from tpu_slam_torch.utils.profiling import StageTimer, ThroughputCounter, sync
 
 YAMLS = sorted((pathlib.Path(jconfig.__file__).parent / "configs").glob(
@@ -237,3 +239,35 @@ def test_event_bus_is_the_same(caplog):
         tevents.logging_listener(ev)
         jevents.logging_listener(ev)
     assert [r.getMessage() for r in caplog.records] == ["[info] hello"] * 2
+
+
+def test_map_io_is_the_same(tmp_path):
+    """The map_server writer and reader and the graph overlay: the same
+    pixels, files and maps; yaml, struct and zlib are imported only
+    inside the functions, as there."""
+    rng = np.random.default_rng(8)
+    m = rng.choice(np.array([-1, 0, 40, 65, 100], np.int8), size=(23, 31))
+    np.testing.assert_array_equal(tmap_io.to_trinary_pgm(m),
+                                  jmap_io.to_trinary_pgm(m))
+    pix = rng.integers(0, 256, (23, 31)).astype(np.uint8)
+    np.testing.assert_array_equal(tmap_io.from_trinary_pgm(pix),
+                                  jmap_io.from_trinary_pgm(pix))
+    grid = port_config(jconfig.GridConfig(resolution=0.1, size_x=31,
+                                          size_y=23, origin_x=-1.5,
+                                          origin_y=0.25))
+    poses = np.c_[rng.uniform(0, 3, (6, 2)), rng.uniform(-3, 3, 6)]
+    edges = [(0, 1, "sequential"), (1, 2, "chain"), (2, 5, "loop"),
+             (3, 4, "other")]
+    for name, mod in (("t", tmap_io), ("j", jmap_io)):
+        mod.save_graph_png(str(tmp_path / f"{name}.png"), m, grid, poses,
+                           edges)
+        mod.save_map(str(tmp_path / name), m, grid)
+    for ext in (".png", ".pgm"):
+        assert (tmp_path / f"t{ext}").read_bytes() == \
+            (tmp_path / f"j{ext}").read_bytes()
+    back, g2 = tmap_io.load_map(str(tmp_path / "j.yaml"))
+    np.testing.assert_array_equal(back, jmap_io.load_map(
+        str(tmp_path / "j.yaml"))[0])
+    assert dataclasses.asdict(g2) == dataclasses.asdict(grid)
+    assert tmap_io.GRAPH_COLORS == jmap_io.GRAPH_COLORS
+    assert not {"yaml", "struct", "zlib"} & set(vars(tmap_io))

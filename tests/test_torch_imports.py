@@ -62,6 +62,9 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.models.icp_odometry",
         "tpu_slam_torch.models.plicp_odometry",
         "tpu_slam_torch.models.scan_match_plicp",
+        "tpu_slam_torch.models.gmapping",
+        "tpu_slam_torch.models.karto.occupancy",
+        "tpu_slam_torch.utils.map_io",
     }
     assert expected <= set(out["mods"])
 
@@ -69,8 +72,10 @@ def test_port_and_chip_smoke_import_without_jax():
 def test_entry_points_default_to_the_card():
     from tpu_slam_torch import _dispatch, convert
     from tpu_slam_torch.data.scan import make_scan
+    from tpu_slam_torch.models.gmapping import GMapping
     from tpu_slam_torch.models.hector_slam import HectorSLAM
     from tpu_slam_torch.models.icp_odometry import ICPOdometry
+    from tpu_slam_torch.models.karto.occupancy import occupancy_from_scans
     from tpu_slam_torch.models.karto.pipeline import DeviceScanStore, KartoSLAM
     from tpu_slam_torch.models.plicp_odometry import PLICPOdometry
     from tpu_slam_torch.models.scan_match_plicp import ScanMatchPLICP
@@ -81,6 +86,7 @@ def test_entry_points_default_to_the_card():
     for fn in (PoseGraphSolver, make_scan, HectorSLAM, KartoSLAM,
                DeviceScanStore, CorrelativeMatcher, convert.scan_from_numpy,
                convert.solver_from_numpy, convert.hector_state_from_numpy,
-               ICPOdometry, PLICPOdometry, ScanMatchPLICP):
+               ICPOdometry, PLICPOdometry, ScanMatchPLICP, GMapping,
+               occupancy_from_scans):
         default = inspect.signature(fn).parameters["device"].default
         assert default == _dispatch.DEFAULT_DEVICE, fn.__name__

@@ -1,12 +1,14 @@
 """Carry state across from the JAX package.
 
 There are no weights; the state that crosses is the configuration, the
-scans, the pose graph, the Hector maps and the Karto mapper, all as plain
-Python or numpy (``dataclasses.asdict`` of a JAX config, a JAX ``Scan``'s
-fields after ``np.asarray``, a JAX ``PoseGraphSolver``'s ``_poses`` /
-``_edges``, a JAX ``HectorSLAM``'s grids and poses) or as the JAX
-package's Karto checkpoint file. The tests feed both packages the same
-inputs through these, without the port importing the JAX package.
+scans, the pose graph, the Hector maps, the GMapping counters and the
+Karto mapper, all as plain Python or numpy (``dataclasses.asdict`` of a
+JAX config, a JAX ``Scan``'s fields after ``np.asarray``, a JAX
+``PoseGraphSolver``'s ``_poses`` / ``_edges``, a JAX ``HectorSLAM``'s
+grids and poses, a JAX ``GMapping``'s ``hits`` / ``visits`` / ``acc``) or
+as the JAX package's Karto checkpoint file. The tests feed both packages
+the same inputs through these, without the port importing the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from tpu_slam_torch import config as _config
 from tpu_slam_torch._dispatch import DEFAULT_DEVICE
 from tpu_slam_torch.config import SLAMConfig, SolverConfig
 from tpu_slam_torch.data.scan import Scan
+from tpu_slam_torch.models.gmapping import GMapping
 from tpu_slam_torch.models.hector_slam import HectorSLAM
 from tpu_slam_torch.models.karto.pipeline import KartoSLAM
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
@@ -79,6 +82,25 @@ def hector_state_from_numpy(slam: HectorSLAM, grids, last_pose,
         None if last_map_update_pose is None
         else np.array(last_map_update_pose, np.float32))
     return slam
+
+
+def gmapping_state_from_numpy(gm: GMapping, hits, visits, acc) -> GMapping:
+    """Load a JAX ``GMapping``'s counters into the port's ``gm``: flat
+    ``hits`` and ``visits`` (size_y·size_x,) and ``acc`` (size_y·size_x,
+    2). Returns ``gm``, its counters as int32 / float32 on ``gm.device``."""
+    n = gm.cfg.grid.size_y * gm.cfg.grid.size_x
+    hits, visits = np.asarray(hits), np.asarray(visits)
+    acc = np.asarray(acc)
+    if hits.size != n or visits.size != n or acc.size != 2 * n:
+        raise ValueError(f"counters of {hits.size}, {visits.size} and "
+                         f"{acc.size // 2} cells for a grid of {n}")
+    gm.hits = torch.as_tensor(hits.astype(np.int32).reshape(n),
+                              device=gm.device)
+    gm.visits = torch.as_tensor(visits.astype(np.int32).reshape(n),
+                                device=gm.device)
+    gm.acc = torch.as_tensor(acc.astype(np.float32).reshape(n, 2),
+                             device=gm.device)
+    return gm
 
 
 def karto_state_from_checkpoint(slam: KartoSLAM, path: str) -> KartoSLAM:
