@@ -14,7 +14,10 @@ batches, the NN kernel at the odometry's 1 × 360 × 360, and the
 correlative kernel at the Karto recipe's front coarse and loop coarse
 passes and the outdoor mission's long anchor coarse pass (at the true
 poses; ``correlative_passes``), each timed as a replayed CUDA graph of
-its launches (``chip_smoke.graph_ms``). Prints one line, ``RATES`` and a
+its launches (``chip_smoke.graph_ms``), and the PCG-LM kernel on the
+mission's loop-closed graph and ``phase_pcg_edges``' three graphs
+(``pcg_graphs``: CUDA events, and a digest of each packed result, so
+that two checkouts' bits compare). Prints one line, ``RATES`` and a
 JSON object with the label, each run's scans/s (sorted), their medians
 and the kernels' ms a launch. To compare a parent with a change on one
 card, copy this file into both checkouts and run it in each,
@@ -24,6 +27,8 @@ between calls, so compare only within one.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import statistics
 import sys
@@ -37,6 +42,7 @@ from tpu_slam_torch.models.offline import offline_slam
 from tpu_slam_torch.ops.cuda import correlative_response
 from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda
 from tpu_slam_torch.ops.cuda.plicp_fused import launch_plicp
+from tpu_slam_torch.solver.pcg_lm import fused_lm_solve
 
 RUNS = 5
 # the correlative passes this script times, and their graph replays
@@ -88,6 +94,31 @@ def correlative_passes(dev) -> dict:
     return out
 
 
+def pcg_graphs(dev, res) -> dict:
+    """The PCG-LM kernel on the mission's loop-closed graph from its raw
+    chain (chip_smoke's ``phase_pcg``) and on ``phase_pcg_edges``' 129-node
+    ring and 2,999- and 9,000-node chains: {graph: [ms a solve by CUDA
+    events, the first 16 hex digits of the packed result's sha256]}."""
+    cfg = cs.SolverConfig()
+    init, ei, ej, means, infos = cs._ring_edges(129, 4,
+                                                np.random.default_rng(31))
+    solvers = {"ring129": cs.solver_from_numpy(
+        cfg, init, list(zip(ei, ej, means, infos)), dev)}
+    for n, c in ((2999, cfg), (9000, dataclasses.replace(
+            cfg, f64_schur_above=0))):
+        solvers[f"chain{n}"] = cs.solver_from_numpy(
+            c, *cs.exact_chain(n, (8, 32), every=False), dev)
+    cases = {"mission": cs.pcg_args(dev, res.solver, res.chain_poses)}
+    cases.update({k: cs.pcg_args(dev, s) for k, s in solvers.items()})
+    out = {}
+    for name, (args, kw) in cases.items():
+        def kern(args=args, kw=kw):
+            return fused_lm_solve(*args, **kw)[5]
+        digest = hashlib.sha256(kern().cpu().numpy().tobytes()).hexdigest()
+        out[name] = [cs.cuda_ms(kern, 5), digest[:16]]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_rates.py needs a CUDA card")
@@ -105,7 +136,7 @@ def main() -> None:
     plicp64_ms = cs.graph_ms(
         lambda: launch_plicp(*small, pcfg.plicp, g[:64]), 50)[0]
     with cs.recording_batches() as rec:
-        offline_slam(scans, cfg, odom=odom)
+        res = offline_slam(scans, cfg, odom=odom)
     batch_ms = {}
     for key in ("chain", "loop"):
         batch = cs.mission_pairs(*rec[key][:5])
@@ -132,7 +163,8 @@ def main() -> None:
         "plicp_512_pairs_ms": plicp_ms, "plicp_64_pairs_ms": plicp64_ms,
         "plicp_chain_ms": batch_ms["chain"], "plicp_loop_ms": batch_ms["loop"],
         "nn_odometry_ms": nn_ms,
-        "correlative_ms": corr_ms}),
+        "correlative_ms": corr_ms,
+        "pcg_lm_ms_digest": pcg_graphs(dev, res)}),
         flush=True)
 
 

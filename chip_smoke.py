@@ -52,6 +52,14 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      blocks, the most nodes under ``f64_schur_above``) and the same at
      9,000 nodes with ``f64_schur_above`` off (the device-memory
      variant);
+ 7b. restarted CG: the PCG-LM kernel at restarts = 1 on the mission
+     graph, bit for bit phase 7's result and timed in turns with it; at
+     restarts = 2 against its plain version to the PCG bars; then
+     ``PoseGraphSolver.compute`` on bench_solver's 4,096-node ring on the
+     PCG route (``use_direct=False``, ``f64_schur_above=0``) at
+     ``cg_restarts`` 1 and 2, the counters zeroed first (one PCG-LM
+     launch each): the final cost at 2 no higher than at 1, the LM and
+     PCG iterations and the solve ms of each;
   8. the mission's scans/s (median of 3 runs after the warm one);
   9. one mission under ``torch.profiler``: device busy time, idle share
      and each kernel's device time per launch;
@@ -99,6 +107,11 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      its cells; int8-equal to the CPU's map from the same corrected
      poses), its scans/s (median of 3 runs after the counted one, which
      warms it), the stage timer, and one run under ``torch.profiler``;
+     then the native library: it must build with g++ and load, and
+     ``occupancy_from_scans(engine="native")`` (the C++ host rasterizer)
+     must give the device engine's map, int8 for int8, on the counted
+     run's final state, both engines' ms beside the card's name and power
+     limit;
  14b. the outdoor offline mission, with the launch counters zeroed
      first: benchmarks/bench_outdoor.py's 1-lap recipe (3,234 scans of
      360 beams, ``preset("karto_outdoor")``, no cut) through
@@ -158,6 +171,19 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      corrected must win), and the correction's wall per scan;
  19. examples/run_feature_detection.py's 120 scans: the card's corner
      masks equal the CPU's, the mean count within 0.5% of the reference's;
+ 19b. the command line over bags (``cli.main``), each run with the launch
+     counters zeroed first: bags written with ``data/rosbag.write_bag``
+     from the online Karto recipe (bz2), the Hector recipe and the bench
+     mission, read back bit for bit by the native decoder, replayed as
+     ``karto --bag`` (with ``--save-map`` and ``--checkpoint``),
+     ``odometry --bag``, ``hector --bag`` and ``offline --bag`` at full
+     width; ``gmapping`` and ``features`` with ``--sim``. Each run equal
+     to a direct call of its model on the same decoded scans, its kernels
+     by name, its ATE against the recipe's truth, wall and scans/s; the
+     map and the Karto and Hector checkpoints read back (the reloaded
+     Hector mapper steps to the original's pose), and one ``offline
+     --bag`` run under ``utils/profiling.device_trace`` whose Chrome trace
+     names the PL-ICP and PCG-LM kernels;
  20. the streamed CR-LM kernel against its plain version on bench_solver's
      rings of 4,096 and 16,384 nodes (K 1,024 and 4,096), then on edge
      cases (W = 2, W = 8, 32,768 nodes, and a 24,576-node chain with
@@ -180,7 +206,8 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      the raw one's;
  24. one JSON line with every kernel (its launches, the PL-ICP and
      correlative kernels' counting the outdoor mission's too, the
-     correlative and LM kernels' the online outdoor run's, its error
+     correlative and LM kernels' the online outdoor run's, every kernel's
+     the command line's runs, the PCG-LM's the restarted ring's, its error
      against its plain version, both times, and its bound: the larger of
      bytes over 3.35 TB/s and operations over 67 T/s in float32, or 16.7
      T/s for the correlative kernel's int32 adds), then ``{"ok": true,
@@ -195,19 +222,22 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from tpu_slam_torch import _build, _dispatch
+from tpu_slam_torch import _build, _dispatch, cli, native
 from tpu_slam_torch import geometry as geo
 from tpu_slam_torch import geometry_np as gnp
 from tpu_slam_torch.config import SolverConfig, default_config, preset
 from tpu_slam_torch.convert import solver_from_numpy
+from tpu_slam_torch.data import rosbag
 from tpu_slam_torch.data import simulator as sim
 from tpu_slam_torch.data.scan import Scan, index_scan, make_scan
 from tpu_slam_torch.models import offline
@@ -252,8 +282,12 @@ from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
 from tpu_slam_torch.solver.pose_graph import (
     PoseGraphSolver, _route, _sq_min_delta,
 )
+from tpu_slam_torch.utils.checkpoint import (
+    load_hector, load_karto, save_hector,
+)
 from tpu_slam_torch.utils.evaluation import ate_rmse
-from tpu_slam_torch.utils.profiling import StageTimer
+from tpu_slam_torch.utils.map_io import load_map
+from tpu_slam_torch.utils.profiling import StageTimer, device_trace
 
 PLICP_POSE_TOL = 1e-4  # m / rad; the two split distance ties differently
 PLICP_INLIER_EQ_FRAC = 0.99  # the rest may differ by ±1 inlier
@@ -1186,10 +1220,13 @@ def pcg_compare(label: str, dev, args, kw, reps: int = 3) -> dict:
     # per LM iteration the edge work and ~60 FLOPs per node (damping, the
     # 3×3 preconditioner inverse); per PCG iteration two 3×3 block
     # products per edge (36) and ~60 per node (diagonal block, the
-    # preconditioner, three dot products and three updates)
+    # preconditioner, three dot products and three updates); a restart's
+    # true residual is one more such matvec and update
     iters, cg = int(k[3, 3]), int(k[4, 0])
+    restarts = iters * (kw.get("cg_restarts", 1) - 1)
     work = bound(12 * M + 16 * E + 48 * E + E + M + k.numel() * 4,
-                 iters * (lm_edge_flops(E) + 60 * M) + cg * (36 * E + 60 * M))
+                 iters * (lm_edge_flops(E) + 60 * M)
+                 + (cg + restarts) * (36 * E + 60 * M))
     blocks, logS, _qmax, smem = pcg_lm.launch_geometry(pcg_lm._incidence(
         args[1].cpu().numpy(), args[2].cpu().numpy(), M)[0])
     variant = (f"{blocks} blocks of {1 << logS} nodes, hot set in "
@@ -1204,7 +1241,8 @@ def pcg_compare(label: str, dev, args, kw, reps: int = 3) -> dict:
     if not ok:
         raise AssertionError(f"{label}: the PCG-LM kernel disagrees with its "
                              "plain version")
-    return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work}
+    return {"max_abs_err": dpose, "ms": ms, "plain_ms": plain_ms, **work,
+            "packed": k}
 
 
 def pcg_args(dev, solver, poses=None):
@@ -1222,11 +1260,12 @@ def pcg_args(dev, solver, poses=None):
     return args, kw
 
 
-def phase_pcg(dev, res) -> dict:
+def phase_pcg(dev, res) -> tuple[dict, torch.Tensor]:
     """PCG-LM kernel vs plain on the mission's loop-closed graph, started
-    from the raw chain."""
-    return pcg_compare("pcg_lm", dev, *pcg_args(dev, res.solver,
-                                                  res.chain_poses))
+    from the raw chain: (its numbers, the kernel's packed result)."""
+    out = pcg_compare("pcg_lm", dev, *pcg_args(dev, res.solver,
+                                                 res.chain_poses))
+    return out, out.pop("packed")
 
 
 def phase_pcg_edges(dev) -> None:
@@ -1959,9 +1998,9 @@ def karto_run(cfg, scans, odom, dev):
     return slam, acc, time.perf_counter() - t0
 
 
-def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
+def phase_karto_main(dev, cfg, scans, odom, gt):
     """The counted online Karto run at full width, its rate, stages and
-    profile."""
+    profile; (its launches, the counted run's mapper)."""
     T = len(gt)
     _dispatch.reset_launches()
     slam, acc, wall = karto_run(cfg, scans, odom, dev)
@@ -2000,7 +2039,7 @@ def phase_karto_main(dev, cfg, scans, odom, gt) -> dict:
         lambda: karto_run(cfg, scans, odom, dev))
     print(profile_line(f"karto run ({T} scans)", wall_us, busy, per),
           flush=True)
-    return launches
+    return launches, slam
 
 
 # --- the outdoor offline mission ------------------------------------------
@@ -3235,6 +3274,362 @@ def phase_offline_corrected(dev) -> int:
     return launches["plicp_fused"]
 
 
+# --- restarted CG in the PCG-LM kernel ------------------------------------
+
+
+def phase_pcg_restarts(dev, res, base) -> dict:
+    """The PCG-LM kernel's restart count (restarted CG, ``cg_restarts``).
+    On the mission's loop-closed graph, as ``phase_pcg`` solves it: at
+    restarts = 1 the kernel's packed result must equal ``base`` (that
+    phase's) bit for bit, timed in turns with the default call (the same
+    instance without the restart loop); at restarts = 2 it is held against
+    its plain version to the PCG bars. Then the main path of the option:
+    ``PoseGraphSolver.compute`` on bench_solver's 4,096-node ring with
+    ``use_direct=False`` and ``f64_schur_above=0`` (the PCG route) at
+    ``cg_restarts`` 1 and 2, the counters zeroed first: one PCG-LM launch
+    each, the final cost at 2 no higher than at 1; each with its LM and
+    PCG iterations and solve ms (median of 3 warm runs). Returns the
+    counted launches."""
+    args, kw = pcg_args(dev, res.solver, res.chain_poses)
+    one = fused_lm_solve(*args, **kw, cg_restarts=1)[5]
+    torch.cuda.synchronize()
+    same = torch.equal(one, base)
+    times = {"default": [], "restarts=1": []}
+    for name in ("default", "restarts=1", "restarts=1", "default"):
+        extra = {} if name == "default" else {"cg_restarts": 1}
+        times[name].append(cuda_ms(lambda: fused_lm_solve(
+            *args, **kw, **extra)[5], 3))
+    print(f"pcg_lm restarts=1 on the mission graph: packed result equal to "
+          f"phase_pcg's bit for bit {same}; ms in turns default "
+          f"{times['default']} restarts=1 {times['restarts=1']}", flush=True)
+    if not same:
+        raise AssertionError("pcg_lm at restarts = 1 moved the mission "
+                             "graph's result")
+    if min(times["restarts=1"]) > 1.1 * max(times["default"]):
+        raise AssertionError("pcg_lm at restarts = 1 is slower than the "
+                             "default call beyond the phase's noise")
+    pcg_compare("pcg_lm restarts=2 mission graph", dev, args,
+                dict(kw, cg_restarts=2))
+    cfg = SolverConfig(use_direct=False, f64_schur_above=0)
+    init, edges = bench_ring(4096)
+    solvers = {r: solver_from_numpy(dataclasses.replace(cfg, cg_restarts=r),
+                                    init, edges, dev) for r in (1, 2)}
+    route = _route(4096, len(edges), dev, solvers[2].cfg,
+                   solvers[2]._band_spec)
+    if route != "pcg":
+        raise AssertionError(f"the 4,096-node ring routed to {route}")
+    _dispatch.reset_launches()
+    packed = {}
+    for r, s in solvers.items():
+        pending = s.compute_async()
+        stats = pending.harvest()
+        packed[r] = (stats, pending._packed.cpu())
+    launches = dict(_dispatch.LAUNCHES)
+    costs = {}
+    for r, s in solvers.items():
+        walls = []
+        for _ in range(3):
+            for i, p in enumerate(init):
+                s.set_node_pose(i, p)
+            t0 = time.perf_counter()
+            s.compute()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        stats, pk = packed[r]
+        costs[r] = stats.final_cost
+        print(f"pcg_lm ring 4096 cg_restarts={r}: cost {stats.initial_cost:.6g}"
+              f" -> {stats.final_cost:.6g}; LM iterations {int(pk[3, 3])} "
+              f"({stats.iterations} good), PCG iterations {int(pk[4, 0])}; "
+              f"solve ms median {sorted(walls)[1]:.3f} (min {min(walls):.3f} "
+              f"max {max(walls):.3f}) over 3 warm runs", flush=True)
+    print(f"pcg_lm ring 4096: launches {launches}", flush=True)
+    if launches["pcg_lm"] != 2 or any(v for k, v in launches.items()
+                                      if k != "pcg_lm"):
+        raise AssertionError("the ring's solves did not each run the PCG-LM "
+                             "kernel alone")
+    if not (np.isfinite(costs[2]) and costs[2] <= costs[1]):
+        raise AssertionError(f"cg_restarts=2 ended at cost {costs[2]:.6g}, "
+                             f"above the single run's {costs[1]:.6g}")
+    return launches
+
+
+# --- the command line, bag replay and the native library ------------------
+
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+POSE_EQ_TOL = 1e-5  # m / rad: a CLI run against the same model called directly
+# ATE bars of the bag runs (aligned, against the recipe's truth): the CPU
+# runs of the same bags gave karto 0.0020, odometry 0.0027, hector 0.0052
+# m. offline has none: a bag carries no odometry, so the mission's PL-ICP
+# chain slides along the corridor (2.17 m on the CPU run), and its loops
+# cannot pull the laps back; the run is held to its direct call instead.
+CLI_ATE_MAX = {"karto": 0.05, "odometry": 0.05, "hector": HECTOR_ATE_MAX,
+               "offline": None}
+
+
+def phase_native(dev, slam, smi: str) -> None:
+    """The native host library on the card's machine: it must build (g++)
+    and load; then ``occupancy_from_scans(engine="native")`` (the C++
+    rasterizer on the host) against ``engine="device"`` on the online Karto
+    run's final state, int8 for int8, with both engines' wall ms (median
+    of 3 after a warm call) beside the card's name and power limit."""
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the native library is unavailable: "
+                             f"{native.build_error()}")
+    slam.flush()
+    poses, pts, ranges = occ._map_inputs(slam)
+    sc = slam.cfg.scan
+    grid = occ.karto_grid_bounds(poses, pts, ranges, sc.range_min,
+                                 sc.range_threshold, 0.05)  # karto_map's
+    kw = dict(range_threshold=sc.range_threshold, min_range=sc.range_min,
+              max_range=sc.range_max)
+    maps, ms = {}, {}
+    for engine in ("native", "device"):
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            maps[engine] = occ.occupancy_from_scans(
+                grid, poses, pts, ranges, engine=engine, device=dev, **kw)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms[engine] = sorted(walls[1:])[1]
+    split = int((maps["native"] != maps["device"]).sum())
+    print(f"native: library {native.library_path().name} built and loaded in "
+          f"{build_s:.2f} s; Karto map of the online run ({len(poses)} scans "
+          f"x {pts.shape[1]} beams, {grid.size_x}x{grid.size_y} cells): "
+          f"native engine {ms['native']:.2f} ms (host), device engine "
+          f"{ms['device']:.2f} ms (wall), median of 3 after a warm call, on "
+          f"{smi}; int8 equal {split == 0} ({split} cells differ; "
+          f"{map_counts(maps['native'])})", flush=True)
+    if split:
+        raise AssertionError(f"native and device maps differ in {split} cells")
+
+
+def scan_bag(path, ranges, stamps, scfg, compression: str) -> np.ndarray:
+    """Write ``ranges`` (T, N) as a LaserScan bag with the port's
+    ``write_bag``; returns the float32 ranges as written."""
+    r32 = np.asarray(ranges, "<f4")
+    N = r32.shape[1]
+    msgs = []
+    for t in range(len(r32)):
+        stamp = float(stamps[t])
+        msgs.append(("laser_scan", "sensor_msgs/LaserScan", stamp,
+                     rosbag.serialize_laser_scan({
+                         "stamp": stamp, "frame_id": "laser",
+                         "angle_min": scfg.angle_min,
+                         "angle_max": scfg.angle_min
+                         + scfg.angle_increment * (N - 1),
+                         "angle_increment": scfg.angle_increment,
+                         "time_increment": scfg.scan_period / N,
+                         "scan_time": scfg.scan_period,
+                         "range_min": scfg.range_min,
+                         "range_max": scfg.range_max, "ranges": r32[t]})))
+    rosbag.write_bag(str(path), msgs, compression=compression)
+    return r32
+
+
+def cli_run(argv):
+    """``cli.main(argv)`` on the card, the launch counters zeroed first:
+    (its printed lines, the run's objects, the kernels it launched, wall
+    s)."""
+    out, buf = {}, io.StringIO()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, out=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _dispatch.LAUNCHES.items() if v}
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}\n{buf.getvalue()}")
+    return buf.getvalue(), out, launches, wall
+
+
+def direct_run(model: str, out, dev, odometry: dict):
+    """The same model called directly on the CLI run's decoded scans and
+    config: (estimate, counts). The Karto run's PL-ICP odometry goes into
+    ``odometry`` by bag, and the odometry model's direct call on the same
+    bag is that run (the same call on the same decoded scans)."""
+    cfg, scans = out["cfg"], out["scans"]
+    bag = out.get("bag")
+    if model == "karto":
+        odom = odometry[bag] = PLICPOdometry(cfg, device=dev).run(scans)
+        slam = KartoSLAM(cfg, device=dev)
+        acc = slam.run(scans, odom)
+        return slam.trajectory(), (tuple(acc), slam.loop_closures,
+                                   slam.solver.num_edges)
+    if model == "odometry":
+        if bag not in odometry:
+            odometry[bag] = PLICPOdometry(cfg, device=dev).run(scans)
+        return odometry[bag], ()
+    if model == "hector":
+        return HectorSLAM(cfg, device=dev).run(scans), ()
+    if model == "offline":
+        r = offline_slam(scans, cfg)
+        return r.poses, (len(r.loops), r.candidates_tried,
+                         r.solver.num_edges)
+    if model == "gmapping":
+        g = GMapping(cfg, device=dev)
+        g.run(scans, out["gt"].astype(np.float32))
+        return out["estimate"], (g.to_ros_map().tobytes(),)
+    return extract_corner_features(scans, cfg.features).cpu().numpy(), ()
+
+
+def cli_counts(model: str, out):
+    m = out["model"]
+    if model == "karto":
+        return (tuple(out["accepted"]), m.loop_closures, m.solver.num_edges)
+    if model == "offline":
+        return (len(m.loops), m.candidates_tried, m.solver.num_edges)
+    if model == "gmapping":
+        return (out["map"].tobytes(),)
+    return ()
+
+
+CLI_KERNELS = {"karto": {"correlative_response", "nn"}, "odometry": {"nn"},
+               "hector": {"hector_fused"},
+               "offline": {"plicp_fused", "pcg_lm"},
+               "gmapping": set(), "features": set()}
+
+
+def phase_bag_cli(dev) -> dict:
+    """The command line over recorded bags on the card, at full width
+    (``default_config()``, 360 beams): bags written with the port's
+    ``write_bag`` from the online Karto recipe (352 scans, bz2, as the
+    lesson bags), the Hector recipe (150 scans) and the bench mission
+    (1,056 scans), replayed by ``cli.main`` as ``karto --bag`` (with
+    ``--save-map`` and ``--checkpoint``) and ``odometry --bag`` (the Karto
+    bag), ``hector --bag`` and ``offline --bag``; ``gmapping`` and
+    ``features`` with ``--sim``. For each: the ranges the native decoder
+    reads back equal those written bit for bit; the run's accepted scans,
+    closures, edges and poses equal a direct call of the same model on the
+    same decoded scans (counts exactly, poses within POSE_EQ_TOL); the
+    kernels it launched, by name, include the model's; its ATE against
+    the recipe's truth (this script's own: a bag carries none); its wall
+    and scans/s. The map and checkpoint files are read back, the Hector
+    state goes through ``save_hector`` / ``load_hector`` (the loaded and
+    the original mapper step one more scan to the same pose), and one
+    ``offline --bag`` run under ``device_trace`` must name the PL-ICP and
+    PCG-LM kernels in its Chrome trace. Returns the runs' launches."""
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    kcfg, kscans, _kodom, kgt = karto_recipe("cpu")
+    hcfg, hscans, hgt = hector_seq(HECTOR_SCANS, "cpu")
+    mcfg, mscans, _modom, mgt = bench_mission("cpu")
+    bags = {}
+    for name, cfg, scans, compression in (
+            ("karto", kcfg, kscans, "bz2"), ("hector", hcfg, hscans, "none"),
+            ("mission", mcfg, mscans, "none")):
+        path = SCRATCH / f"{name}.bag"
+        t0 = time.perf_counter()
+        written = scan_bag(path, scans.ranges.numpy(), scans.stamp.numpy(),
+                           cfg.scan, compression)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = native.bag_read_scans(str(path), "laser_scan")
+        read_s = time.perf_counter() - t0
+        equal = got is not None and got[0].tobytes() == written.tobytes()
+        print(f"bag {name}: {written.shape[0]} scans x {written.shape[1]} "
+              f"beams, {compression}, {path.stat().st_size} bytes, written "
+              f"in {write_s:.2f} s; native decoder {read_s * 1e3:.1f} ms; "
+              f"ranges bit-equal to those written {equal} (NaN "
+              f"{int(np.isnan(written).sum())}, inf "
+              f"{int(np.isinf(written).sum())})", flush=True)
+        if not equal:
+            raise AssertionError(f"bag {name}: the native decoder did not "
+                                 "read back the ranges written")
+        bags[name] = str(path)
+    mapbase, ckpt = str(SCRATCH / "karto_map"), str(SCRATCH / "karto.npz")
+    runs = [("karto", ["--bag", bags["karto"], "--save-map", mapbase,
+                       "--checkpoint", ckpt], kgt),
+            ("odometry", ["--bag", bags["karto"]], kgt),
+            ("hector", ["--bag", bags["hector"]], hgt),
+            ("offline", ["--bag", bags["mission"]], mgt),
+            ("gmapping", ["--sim"], None), ("features", ["--sim"], None)]
+    total = dict.fromkeys(_dispatch.LAUNCHES, 0)
+    outs, odometry = {}, {}
+    for model, extra, gt in runs:
+        text, out, launches, wall = cli_run([model, *extra])
+        outs[model] = out
+        out["bag"] = extra[1] if extra[0] == "--bag" else None
+        for k, v in launches.items():
+            total[k] += v
+        est, counts = direct_run(model, out, dev, odometry)
+        same_counts = counts == cli_counts(model, out)
+        gap = float(np.max(np.abs(np.asarray(out["estimate"], np.float64)
+                                  - np.asarray(est, np.float64))))
+        T = int(out["scans"].ranges.shape[0])
+        ate, bar = "", CLI_ATE_MAX.get(model)
+        if gt is not None:
+            ref = gt[out["accepted"]] if model == "karto" else gt
+            a = float(ate_rmse(out["estimate"], ref))
+            ate = f" ATE {a:.5f} m (bar {bar} m)"
+        lines = " | ".join(ln for ln in text.splitlines() if ln)
+        print(f"cli {model} {' '.join(extra[:1])}: {T} scans, wall "
+              f"{wall:.2f} s ({T / wall:.1f} scans/s);{ate} kernels "
+              f"{launches}; against the direct call: counts equal "
+              f"{same_counts}, estimate max|d| {gap:.3e} (bit-equal "
+              f"{gap == 0.0}); printed: {lines}", flush=True)
+        if not (same_counts and gap <= POSE_EQ_TOL):
+            raise AssertionError(f"cli {model}: differs from the direct call")
+        if not CLI_KERNELS[model] <= set(launches):
+            raise AssertionError(f"cli {model}: launched {launches}, not "
+                                 f"every one of {CLI_KERNELS[model]}")
+        if bar is not None and not a <= bar:
+            raise AssertionError(f"cli {model}: ATE {a:.5f} m above {bar} m")
+    # the files a run wrote, read back
+    kout = outs["karto"]
+    back, grid = load_map(mapbase + ".yaml")
+    fresh = KartoSLAM(kout["cfg"], device=dev)
+    load_karto(fresh, ckpt)
+    orig = kout["model"]
+    ck_ok = (len(fresh.scans) == len(orig.scans)
+             and fresh.solver.num_edges == orig.solver.num_edges
+             and fresh.loop_closures == orig.loop_closures
+             and np.array_equal(fresh.solver.get_poses(),
+                                orig.solver.get_poses()))
+    map_ok = (np.array_equal(back, kout["map"])
+              and (grid.size_x, grid.size_y) == (kout["grid"].size_x,
+                                                 kout["grid"].size_y))
+    # the Hector state through its checkpoint: both step one more scan
+    hout = outs["hector"]
+    hslam, hs = hout["model"], hout["scans"]
+    hpath = str(SCRATCH / "hector.npz")
+    save_hector(hslam, hpath)
+    loaded = HectorSLAM(hout["cfg"], device=dev)
+    load_hector(loaded, hpath)
+    grids_ok = all(torch.equal(a, b) for a, b in zip(loaded.grids,
+                                                     hslam.grids))
+    last = index_scan(hs, hs.ranges.shape[0] - 1)
+    p_orig, p_loaded = hslam.step(last), loaded.step(last)
+    step_ok = bool(np.array_equal(p_orig, p_loaded))
+    print(f"cli files: map {mapbase}.yaml read back equal {map_ok}; Karto "
+          f"checkpoint into a fresh KartoSLAM: {len(fresh.scans)} scans, "
+          f"{fresh.solver.num_edges} edges, poses equal {ck_ok}; Hector "
+          f"checkpoint: grids equal {grids_ok}, one more step to "
+          f"{p_loaded.tolist()} equal to the original's {step_ok}",
+          flush=True)
+    if not (map_ok and ck_ok and grids_ok and step_ok):
+        raise AssertionError("a file of the CLI runs did not read back")
+    # one offline --bag run under device_trace
+    trace = SCRATCH / "offline_trace.json"
+    t0 = time.perf_counter()
+    with device_trace(str(trace)):
+        cli_run(["offline", "--bag", bags["mission"]])
+    trace_s = time.perf_counter() - t0
+    kernels = [e.get("name", "") for e in
+               json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in ("plicp_fused",
+                                                       "pcg_lm")}
+    print(f"cli offline under device_trace: {trace_s:.2f} s with the trace's "
+          f"export, {trace.stat().st_size} bytes, {len(kernels)} kernel "
+          f"events; by name {named}", flush=True)
+    if not all(named.values()):
+        raise AssertionError("the Chrome trace does not name the PL-ICP and "
+                             "PCG-LM kernels")
+    return total
+
+
 class PhaseClock:
     """Prints the wall of each group of phases and the running total, so
     that a run shows where its time limit goes."""
@@ -3251,7 +3646,7 @@ class PhaseClock:
 
 def main() -> None:
     clock = PhaseClock()
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     clock("device and build")
@@ -3268,8 +3663,9 @@ def main() -> None:
     clock("large pose graphs, host f64 arm, corrected mission")
     cfg, scans, odom, res, launches, batches = phase_main_path(dev)
     phase_mission_batches(cfg, res.poses.shape[0], batches)
-    pcg = phase_pcg(dev, res)
+    pcg, pcg_base = phase_pcg(dev, res)
     phase_pcg_edges(dev)
+    restart_launches = phase_pcg_restarts(dev, res, pcg_base)
     phase_mission_rate(cfg, scans, odom)
     phase_profile(cfg, scans, odom)
     clock("mission")
@@ -3282,8 +3678,10 @@ def main() -> None:
     phase_correlative_edges(dev, records, front, loop)
     phase_karto_layers(dev, records)
     clock("correlative kernel")
-    karto_launches = phase_karto_main(dev, kcfg, kscans, kodom, kgt)
+    karto_launches, kslam = phase_karto_main(dev, kcfg, kscans, kodom, kgt)
     clock("online Karto")
+    phase_native(dev, kslam, smi)
+    clock("native library")
     outdoor_launches = phase_outdoor_main(dev)
     clock("outdoor mission")
     online_launches = phase_outdoor_online(dev)
@@ -3298,38 +3696,46 @@ def main() -> None:
     nn_launches += phase_undistortion(dev)
     phase_features(dev)
     clock("scan matching, undistortion, features")
+    cli_launches = phase_bag_cli(dev)
+    clock("command line and bag replay")
     kernels = [
         {"name": "plicp_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/plicp_fused.cu",
          "replaces": "tpu_slam/ops/pallas/plicp_fused.py:585",
          "launches": launches["plicp_fused"]
-         + outdoor_launches["plicp_fused"], **plicp},
+         + outdoor_launches["plicp_fused"] + cli_launches["plicp_fused"],
+         **plicp},
         {"name": "cr_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_lm.cu",
          "replaces": "tpu_slam/solver/pallas_cr_lm.py:573",
-         "launches": launches["cr_lm"] + online_launches["cr_lm"], **cr},
+         "launches": launches["cr_lm"] + online_launches["cr_lm"]
+         + cli_launches["cr_lm"], **cr},
         {"name": "cr_stream", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_stream.cu",
          "replaces": "tpu_slam/solver/cr_stream.py:529",
          "launches": large_launches["cr_stream"]
-         + online_launches["cr_stream"], **stream},
+         + online_launches["cr_stream"] + cli_launches["cr_stream"],
+         **stream},
         {"name": "pcg_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/pcg_lm.cu",
          "replaces": "tpu_slam/solver/pallas_lm.py:384",
-         "launches": launches["pcg_lm"] + online_launches["pcg_lm"], **pcg},
+         "launches": launches["pcg_lm"] + online_launches["pcg_lm"]
+         + restart_launches["pcg_lm"] + cli_launches["pcg_lm"], **pcg},
         {"name": "hector_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/hector_fused.cu",
          "replaces": "tpu_slam/ops/pallas/hector_fused.py:269",
-         "launches": hector_launches, **hector},
+         "launches": hector_launches + cli_launches["hector_fused"],
+         **hector},
         {"name": "correlative_response", "route": "cuda",
          "source": "tpu_slam_torch/csrc/correlative_response.cu",
          "replaces": "tpu_slam/ops/pallas/correlative_response.py:160",
          "launches": karto_launches["correlative_response"]
          + outdoor_launches["correlative_response"]
-         + online_launches["correlative_response"], **resp},
+         + online_launches["correlative_response"]
+         + cli_launches["correlative_response"], **resp},
         {"name": "nn", "route": "cuda", "source": "tpu_slam_torch/csrc/nn.cu",
          "replaces": "tpu_slam/ops/pallas/nn.py:50",
-         "launches": nn_launches, **nn},
+         "launches": nn_launches + cli_launches["nn"], **nn},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

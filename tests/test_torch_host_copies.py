@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host modules (config,
 geometry_np, data/simulator, solver/banded, utils/evaluation,
-utils/profiling, utils/events, utils/map_io) compute what the JAX
-package's modules compute, on the same seeded inputs. ``port_config`` is
+utils/profiling with device_trace, utils/events, utils/map_io, the Hector
+half of utils/checkpoint, the CLI's models and options) compute what the
+JAX package's modules compute, on the same seeded inputs. ``port_config`` is
 the tests' one way to hand both packages the same settings."""
 
 import dataclasses
@@ -271,3 +272,119 @@ def test_map_io_is_the_same(tmp_path):
     assert dataclasses.asdict(g2) == dataclasses.asdict(grid)
     assert tmap_io.GRAPH_COLORS == jmap_io.GRAPH_COLORS
     assert not {"yaml", "struct", "zlib"} & set(vars(tmap_io))
+
+
+def test_map_yaml_is_read_without_pyyaml(tmp_path):
+    """The port reads map_server's flat YAML itself (the card's machine
+    has no PyYAML): the keys load_map uses equal yaml.safe_load's, on a
+    file as map_saver writes it, comments and quotes included."""
+    import yaml
+
+    text = ("image: 'lab map.pgm'  # the image\n"
+            "resolution: 0.050000\n"
+            "origin: [-12.2, 3.5e-1, 0.0]\n"
+            "negate: 0\noccupied_thresh: 0.65\nfree_thresh: 0.196\n\n")
+    path = tmp_path / "m.yaml"
+    path.write_text(text)
+    ref = yaml.safe_load(text)
+    got = tmap_io._read_map_yaml(str(path))
+    assert got.keys() == ref.keys()
+    assert got["image"] == ref["image"]
+    assert got["origin"] == ref["origin"]
+    for k in ("resolution", "negate", "occupied_thresh", "free_thresh"):
+        assert got[k] == ref[k], k
+
+
+def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
+    import json
+
+    from tpu_slam_torch.utils.profiling import device_trace
+
+    path = tmp_path / "trace.json"
+    with device_trace(str(path)):
+        a = torch.arange(64.0).reshape(8, 8)
+        (a @ a).sum()
+    trace = json.loads(path.read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("matmul" in n or "mm" in n for n in names), sorted(names)[:20]
+
+
+def test_hector_checkpoint_crosses_the_packages(tmp_path):
+    """save_hector / load_hector: a snapshot of either package loads into
+    the other's HectorSLAM to equal state (test_hector.py's small config,
+    a few scans mapped and matched)."""
+    import jax.numpy as jnp
+
+    from tpu_slam.data.scan import index_scan as jindex_scan
+    from tpu_slam.data.scan import make_scan as jmake_scan
+    from tpu_slam.models.hector_slam import HectorSLAM as JHector
+    from tpu_slam.utils import checkpoint as jckpt
+    from tpu_slam_torch.convert import scan_from_numpy
+    from tpu_slam_torch.data.scan import index_scan
+    from tpu_slam_torch.models.hector_slam import HectorSLAM
+    from tpu_slam_torch.utils import checkpoint as tckpt
+
+    from test_hector import small_cfg
+
+    cfg = small_cfg()
+    traj = jsim.circle_trajectory(8, radius=1.5, angular_rate=0.6)
+    world = jsim.office_world(seed=31, size=10.0, clear_path=traj)
+    seq = jsim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
+                                 seed=3)
+    jscans = jmake_scan(seq.ranges, cfg.scan)
+    tscans = scan_from_numpy(
+        *(np.asarray(getattr(jscans, f)) for f in
+          ("ranges", "valid", "angles", "stamp", "time_increment")),
+        device="cpu")
+    ref = JHector(cfg)
+    port = HectorSLAM(port_config(cfg), device="cpu")
+    for t in range(5):
+        ref.step(jindex_scan(jscans, t))
+        port.step(index_scan(tscans, t))
+    jckpt.save_hector(ref, str(tmp_path / "ref.npz"))
+    tckpt.save_hector(port, str(tmp_path / "port.npz"))
+    assert sorted(np.load(tmp_path / "ref.npz").files) == \
+        sorted(np.load(tmp_path / "port.npz").files)
+
+    loaded = HectorSLAM(port_config(cfg), device="cpu")
+    tckpt.load_hector(loaded, str(tmp_path / "ref.npz"))
+    for g, r in zip(loaded.grids, ref.grids):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    np.testing.assert_array_equal(loaded.last_pose.numpy(),
+                                  np.asarray(ref.last_pose))
+    np.testing.assert_array_equal(loaded._last_map_update_pose,
+                                  ref._last_map_update_pose)
+
+    jloaded = JHector(cfg)
+    jckpt.load_hector(jloaded, str(tmp_path / "port.npz"))
+    for g, r in zip(jloaded.grids, port.grids):
+        np.testing.assert_array_equal(np.asarray(g), r.numpy())
+    np.testing.assert_array_equal(np.asarray(jloaded.last_pose),
+                                  port.last_pose.numpy())
+    # the loaded port mapper steps on as the saved one does
+    a = loaded.step(index_scan(tscans, 5))
+    b = JHector(cfg)
+    jckpt.load_hector(b, str(tmp_path / "ref.npz"))
+    np.testing.assert_allclose(a, np.asarray(b.step(jindex_scan(jscans, 5))),
+                               atol=2e-4)
+    # before any map update the snapshot says so (NaN), and loads as None
+    fresh = HectorSLAM(port_config(cfg), device="cpu")
+    tckpt.save_hector(fresh, str(tmp_path / "fresh.npz"))
+    tckpt.load_hector(loaded, str(tmp_path / "fresh.npz"))
+    assert loaded._last_map_update_pose is None
+    assert jnp.all(jnp.isnan(np.load(tmp_path / "fresh.npz")["last_update"]))
+
+
+def test_cli_models_and_options_are_the_references():
+    from tpu_slam import cli as jcli
+    from tpu_slam_torch import cli
+
+    assert cli.MODELS == jcli.MODELS
+
+    def options(parser):
+        return sorted((a.dest, tuple(a.option_strings), a.default,
+                       a.type, str(a.choices)) for a in parser._actions
+                      if a.dest != "help")
+
+    assert options(cli._build_parser()) == options(jcli._build_parser())

@@ -65,6 +65,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.models.gmapping",
         "tpu_slam_torch.models.karto.occupancy",
         "tpu_slam_torch.utils.map_io",
+        "tpu_slam_torch.cli", "tpu_slam_torch.__main__",
+        "tpu_slam_torch.data.rosbag", "tpu_slam_torch.native",
     }
     assert expected <= set(out["mods"])
 
@@ -90,3 +92,42 @@ def test_entry_points_default_to_the_card():
                occupancy_from_scans):
         default = inspect.signature(fn).parameters["device"].default
         assert default == _dispatch.DEFAULT_DEVICE, fn.__name__
+    # the command line: the card unless --cpu
+    from tpu_slam_torch import cli
+
+    for model in cli.MODELS:
+        args = cli._build_parser().parse_args([model, "--sim"])
+        assert cli.device_of(args) == _dispatch.DEFAULT_DEVICE, model
+
+
+def test_cli_builds_on_the_card_unless_told_cpu(monkeypatch):
+    """Without --cpu the CLI builds its scans (and so every model that
+    takes their device) on the card, and with no card it stops; with
+    --cpu it builds them on the CPU."""
+    import pytest
+    import torch
+
+    from tpu_slam_torch import _dispatch, cli
+    from tpu_slam_torch.data import scan as scan_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["odometry", "--sim", "--sim-scans", "3"])
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def recording(*args, device=None, **kw):
+        seen.append(device)
+        raise Built
+
+    monkeypatch.setattr(scan_mod, "make_scan", recording)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for argv, dev in ((["karto", "--sim", "--sim-scans", "3"],
+                       _dispatch.DEFAULT_DEVICE),
+                      (["karto", "--sim", "--sim-scans", "3", "--cpu"],
+                       "cpu")):
+        with pytest.raises(Built):
+            cli.main(argv)
+        assert seen.pop() == dev

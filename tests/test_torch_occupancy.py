@@ -84,11 +84,21 @@ def test_occupancy_from_scans_engines_match_reference(seed):
 
 
 def test_engines_that_are_not_ported_raise():
+    """Every engine is ported: the native engine (the C++ host
+    rasterizer) gives the reference's native map and the port's device
+    map; an unknown engine raises, and no scans give an unknown map."""
     poses, pl, r = _mission_scans(2, T_=3)
-    grid = port_config(J.karto_grid_bounds(poses, pl, r, 0.15, 5.0, 0.05))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.occupancy_from_scans(grid, poses, pl, r, 5.0, engine="native",
-                               device="cpu")
+    jgrid = J.karto_grid_bounds(poses, pl, r, 0.15, 5.0, 0.05)
+    grid = port_config(jgrid)
+    native = T.occupancy_from_scans(grid, poses, pl, r, 5.0, engine="native",
+                                    device="cpu")
+    np.testing.assert_array_equal(
+        native, J.occupancy_from_scans(jgrid, poses, pl, r, 5.0,
+                                       engine="native"))
+    np.testing.assert_array_equal(
+        native, T.occupancy_from_scans(grid, poses, pl, r, 5.0,
+                                       engine="device", device="cpu"))
+    assert (native == 100).sum() > 10
     with pytest.raises(ValueError, match="unknown engine"):
         T.occupancy_from_scans(grid, poses, pl, r, 5.0, engine="tpu",
                                device="cpu")

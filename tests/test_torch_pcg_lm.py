@@ -239,3 +239,53 @@ def test_refused_launch_raises(monkeypatch):
     monkeypatch.setitem(_build._LIBS, "pcg_lm", Lib())
     with pytest.raises(RuntimeError, match="pcg_lm kernel launch failed"):
         _build.launch("pcg_lm", *range(25))
+
+
+@pytest.mark.parametrize("restarts", [1, 2])
+def test_plain_pcg_matches_cg_solve(ring, restarts):
+    """The plain PCG of one LM step (``_pcg``) against the reference's
+    ``cg_solve`` on the same normal equations, at a CG budget too short
+    for one run (8 iterations on the 48-node ring), with and without a
+    restart: the same iterations in another float32 sum order (measured
+    4e-7 and 1e-6 of the solution's largest entry)."""
+    from tpu_slam_torch.solver.lm import normal_equations
+
+    t = {k: torch.as_tensor(v) for k, v in ring.items()}
+    M = len(ring["p"])
+    Hd, Hij, b = normal_equations(t["p"], t["ei"], t["ej"], t["means"],
+                                  t["infos"], M)
+    fm = t["free"].to(torch.float32)
+    lam = 1e-4
+    port = pcg_lm._pcg(Hd, Hij, b, t["ei"], t["ej"], fm, lam, 8, 1e-10,
+                       restarts).numpy()
+    ref = np.asarray(pg.cg_solve(
+        jnp.asarray(Hd.numpy()), jnp.asarray(Hij.numpy()),
+        jnp.asarray(ring["ei"], jnp.int32), jnp.asarray(ring["ej"], jnp.int32),
+        jnp.asarray(b.numpy()), jnp.float32(lam), jnp.asarray(ring["free"]),
+        8, 1e-10, restarts=restarts))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(port, ref, rtol=0, atol=2e-5 * scale)
+    if restarts == 2:  # the restart moved the solution on
+        one = pcg_lm._pcg(Hd, Hij, b, t["ei"], t["ej"], fm, lam, 8, 1e-10)
+        assert np.abs(port - one.numpy()).max() > 1e-3 * scale
+
+
+def test_entry_point_takes_the_restart_count():
+    """pcg_lm.cu's C entry point and its ctypes signature agree, with the
+    restart count the argument before the stream, and the kernel keeps a
+    code path without the restart loop (restarts = 1)."""
+    import re
+
+    from tpu_slam_torch import _build
+
+    src = (_build.CSRC / "pcg_lm.cu").read_text()
+    params = re.search(r'extern "C" int pcg_lm_launch\((.*?)\)\s*\{', src,
+                       re.S)[1].split(",")
+    assert len(params) == len(_build.SIGNATURES["pcg_lm"][1])
+    assert params[-2].split() == ["int", "restarts"]
+    assert "pcg_lm_kernel<true, false>" in src
+    assert "pcg_lm_kernel<false, false>" in src
+    with pytest.raises(ValueError, match="cg_restarts"):
+        pcg_lm.fused_lm_solve(*(torch.zeros(1),) * 7, 1e-4, iters=1,
+                              cg_iters=1, cg_tol=0.0, sq_min_delta=0.0,
+                              cg_restarts=0)

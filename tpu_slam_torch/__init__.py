@@ -7,6 +7,8 @@ kernel, a tensor on ``cpu`` runs the kernel's plain PyTorch version
 (``_dispatch.route``). The entry points that make tensors put them on
 ``_dispatch.DEFAULT_DEVICE``, the card, unless given ``device="cpu"``.
 The package imports nothing of ``tpu_slam``: the host modules it needs
-(config, geometry_np, data/simulator, solver/banded, utils/evaluation,
-utils/profiling, utils/events, utils/checkpoint) are its own copies.
+(config, geometry_np, data/simulator, data/rosbag, native, solver/banded,
+utils/evaluation, utils/profiling, utils/events, utils/checkpoint,
+utils/map_io) are its own copies. ``python -m tpu_slam_torch`` is the
+command line (``cli.py``).
 """

@@ -61,8 +61,8 @@ SIGNATURES = {
         "pcg_lm_launch",
         # pT, ei, ej, meansT, W6, fm, row_ptr, inc, pos, out, L, scratch,
         # lam0, M, E, iters, cg_iters, cg_tol, sq_min_delta, blocks, logS,
-        # qmax, smem, stream
-        [_VP] * 10 + [_I, _VP, _F, _I, _I, _I, _I, _F, _F] + [_I] * 4
+        # qmax, smem, restarts, stream
+        [_VP] * 10 + [_I, _VP, _F, _I, _I, _I, _I, _F, _F] + [_I] * 5
         + [_VP],
     ),
     "hector_fused": (

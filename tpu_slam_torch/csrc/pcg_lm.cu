@@ -41,6 +41,13 @@
 // - The per-LM-iteration assembly runs a thread per edge over the cluster
 //   (blocks in device memory; H into the two ends' incidence slots), then
 //   a thread per node. Poses and the candidate live in device memory.
+// - Restarted CG (restarts > 1, the reference's cg_solve(restarts=)): after
+//   each run of at most cg_iters iterations the true residual r = -b - A x
+//   is recomputed (one more matvec, through the same neighbour reads as
+//   A p) and a fresh Krylov space starts from p = z = M^-1 r; the stopping
+//   threshold stays that of the first run. One run is cg_run, the loop of
+//   the kernel without restarts; the kernel is templated on whether it
+//   restarts, so a solve with restarts = 1 runs that code alone.
 // Every sum has a fixed order and no atomics are used. PCG stops as soon as
 // ||r||^2 <= cg_tol ||b||^2, which is where the reference's masked
 // iterations stop changing anything. The TPU kernel's (E, M) one-hot
@@ -411,30 +418,53 @@ __device__ __forceinline__ float3 direction(float4 p, float4 z, float beta) {
                      __fmaf_rn(beta, p.z, z.z));
 }
 
-// x <- PCG solution of H x = -b (block-Jacobi preconditioner); returns
-// the number of iterations run.
+// r <- -b - A x and z <- M^-1 r for this block's nodes (x masked as the
+// matvec masks it), p <- 0 so that the next direction is z; returns the
+// cluster sums (r.z, r.r). A restart of restarted CG.
 template <bool SMEM>
-__device__ int pcg(Ctx& k, const Part& pt, int cg_iters, float cg_tol,
-                   Sums& sm) {
+__device__ float2 true_residual(Ctx& k, const Part& pt, Sums& sm) {
   const int M = k.M;
-  float bb2 = 0.f, rz0 = 0.f;
+  float rz = 0.f, rr = 0.f;
   for (int l = threadIdx.x; l < pt.nloc; l += blockDim.x) {
     const int m = pt.o0 + l;
-    const float f = k.fm[m];
-    const float3 rv = make_float3(-k.b3[m] * f, -k.b3[M + m] * f,
-                                  -k.b3[2 * M + m] * f);
+    const float4 zm = k.z[l], xl = k.x[l];
+    const float f = zm.w, nf = 1.f - f;
+    const float3 xm = make_float3(xl.x * f, xl.y * f, xl.z * f);
+    float3 y = sym3(k.d4[l], k.d2[l], xm);
+    const int q1 = k.rp[l + 1];
+    for (int q = k.rp[l]; q < q1; ++q) {
+      const int o = k.inc[q].y;
+      const float fo = node_get<SMEM>(k.z, o, pt).w;
+      const float4 x4 = node_get<SMEM>(k.x, o, pt);
+      const float3 xo = make_float3(x4.x * fo, x4.y * fo, x4.z * fo);
+      const float4 a = hot_get<SMEM>(k.ha + q), b = hot_get<SMEM>(k.hb + q);
+      const float c = hot_get<SMEM>(k.hc + q);
+      y.x += a.x * xo.x + a.y * xo.y + a.z * xo.z;
+      y.y += a.w * xo.x + b.x * xo.y + b.y * xo.z;
+      y.z += b.z * xo.x + b.w * xo.y + c * xo.z;
+    }
+    const float3 rv = make_float3(
+        -k.b3[m] * f - (y.x * f + xm.x * nf),
+        -k.b3[M + m] * f - (y.y * f + xm.y * nf),
+        -k.b3[2 * M + m] * f - (y.z * f + xm.z * nf));
     const float3 zv = sym3(k.m4[l], k.m2[l], rv);
-    k.x[l] = make_float4(0.f, 0.f, 0.f, 0.f);
     k.r[l] = make_float4(rv.x, rv.y, rv.z, 0.f);
-    k.p[l] = make_float4(0.f, 0.f, 0.f, 0.f);  // so the first direction is z
     k.z[l] = make_float4(zv.x, zv.y, zv.z, f);
-    bb2 += rv.x * rv.x + rv.y * rv.y + rv.z * rv.z;
-    rz0 += rv.x * zv.x + rv.y * zv.y + rv.z * zv.z;
+    k.p[l] = make_float4(0.f, 0.f, 0.f, 0.f);
+    rz += rv.x * zv.x + rv.y * zv.y + rv.z * zv.z;
+    rr += rv.x * rv.x + rv.y * rv.y + rv.z * rv.z;
   }
-  const float2 s0 = cluster_sum2<SMEM>(bb2, rz0, sm);
-  const float stop2 = cg_tol * s0.x;
-  float rr = s0.x;  // r starts at -b
-  float rz = s0.y, beta = 0.f;
+  return cluster_sum2<SMEM>(rz, rr, sm);
+}
+
+// One run of at most cg_iters PCG iterations from the state in k (r, z,
+// x, and p = 0 so that the first direction is z), while ||r||^2 > stop2;
+// rr and rz carry r.r and r.z in and out. Returns the iterations run.
+template <bool SMEM>
+__device__ __forceinline__ int cg_run(Ctx& k, const Part& pt, int cg_iters,
+                                      float stop2, float& rr, float& rz,
+                                      Sums& sm) {
+  float beta = 0.f;
   int it = 0;
   for (; it < cg_iters && rr > stop2; ++it) {
     // Ap = H p on the gauge-fixed system (cg_matvec semantics), with this
@@ -495,10 +525,50 @@ __device__ int pcg(Ctx& k, const Part& pt, int cg_iters, float cg_tol,
   return it;
 }
 
-template <bool SMEM>
+// x <- PCG solution of H x = -b (block-Jacobi preconditioner), in
+// `restarts` runs of at most cg_iters iterations when RESTART (else one,
+// the code of a kernel without restarts); returns the number of
+// iterations run.
+template <bool SMEM, bool RESTART>
+__device__ int pcg(Ctx& k, const Part& pt, int cg_iters, float cg_tol,
+                   int restarts, Sums& sm) {
+  const int M = k.M;
+  float bb2 = 0.f, rz0 = 0.f;
+  for (int l = threadIdx.x; l < pt.nloc; l += blockDim.x) {
+    const int m = pt.o0 + l;
+    const float f = k.fm[m];
+    const float3 rv = make_float3(-k.b3[m] * f, -k.b3[M + m] * f,
+                                  -k.b3[2 * M + m] * f);
+    const float3 zv = sym3(k.m4[l], k.m2[l], rv);
+    k.x[l] = make_float4(0.f, 0.f, 0.f, 0.f);
+    k.r[l] = make_float4(rv.x, rv.y, rv.z, 0.f);
+    k.p[l] = make_float4(0.f, 0.f, 0.f, 0.f);  // so the first direction is z
+    k.z[l] = make_float4(zv.x, zv.y, zv.z, f);
+    bb2 += rv.x * rv.x + rv.y * rv.y + rv.z * rv.z;
+    rz0 += rv.x * zv.x + rv.y * zv.y + rv.z * zv.z;
+  }
+  const float2 s0 = cluster_sum2<SMEM>(bb2, rz0, sm);
+  const float stop2 = cg_tol * s0.x;
+  float rr = s0.x;  // r starts at -b
+  float rz = s0.y;
+  int it = cg_run<SMEM>(k, pt, cg_iters, stop2, rr, rz, sm);
+  if constexpr (RESTART) {
+    for (int run = 1; run < restarts; ++run) {
+      // the true residual of x, a fresh Krylov space
+      const float2 s = true_residual<SMEM>(k, pt, sm);
+      rz = s.x;
+      rr = s.y;
+      it += cg_run<SMEM>(k, pt, cg_iters, stop2, rr, rz, sm);
+    }
+  }
+  return it;
+}
+
+template <bool SMEM, bool RESTART>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     pcg_lm_kernel(Ctx k, float* __restrict__ out, int L, float lam0, int iters,
-                  int cg_iters, float cg_tol, float sq_min_delta) {
+                  int cg_iters, float cg_tol, float sq_min_delta,
+                  int restarts) {
   extern __shared__ float4 dyn4[];
   __shared__ float2 red[128];  // cluster_sum2's 2 x 32, then the async's
   __shared__ float2 slots[2 * MAX_CLUSTER];
@@ -570,7 +640,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   bool done = false;
   while (it < iters && !done) {
     normal_eq<SMEM>(k, pt, lam);
-    cg_total += pcg<SMEM>(k, pt, cg_iters, cg_tol, sm);
+    cg_total += pcg<SMEM, RESTART>(k, pt, cg_iters, cg_tol, restarts, sm);
     float sq = 0.f;
     for (int l = threadIdx.x; l < pt.nloc; l += blockDim.x) {
       const int m = pt.o0 + l;
@@ -612,8 +682,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     if (m == 2) s = good;
     if (m == 3) s = (float)it;
     out[3 * L + m] = s;
-    // row 4, lane 0: the PCG iterations run over the whole solve (the
-    // work this solve's data needed; the plain version leaves it 0)
+    // row 4, lane 0: the PCG iterations run over the whole solve, every
+    // restart's (the work this solve's data needed; the plain version
+    // leaves it 0)
     out[4 * L + m] = m == 0 ? (float)cg_total : 0.f;
     for (int u = 5; u < 8; ++u) out[u * L + m] = 0.f;
   }
@@ -627,7 +698,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 // incidence's 2 * edge + role and the edge's other node, in CSR order
 // (row_ptr); pos (2E,) the incidence of each edge end. smem = 0 runs the
 // device-memory variant; otherwise each block's hot-set bytes (at least 4
-// hot_words(S, qmax), qmax the most incidences a block holds). Returns a
+// hot_words(S, qmax), qmax the most incidences a block holds). restarts
+// (>= 1) runs of at most cg_iters PCG iterations each LM step. Returns a
 // cudaError_t: non-zero when the arguments are out of range or the card
 // refuses the cluster.
 extern "C" int pcg_lm_launch(const void* pT, const void* ei, const void* ej,
@@ -637,8 +709,10 @@ extern "C" int pcg_lm_launch(const void* pT, const void* ei, const void* ej,
                              int L, void* scratch, float lam0, int M, int E,
                              int iters, int cg_iters, float cg_tol,
                              float sq_min_delta, int blocks, int logS,
-                             int qmax, int smem, void* stream) {
-  if (M < 1 || E < 1 || blocks < 1 || blocks > MAX_CLUSTER || logS < 0 ||
+                             int qmax, int smem, int restarts,
+                             void* stream) {
+  if (M < 1 || E < 1 || restarts < 1 || blocks < 1 || blocks > MAX_CLUSTER ||
+      logS < 0 ||
       logS > 20 || ((size_t)blocks << logS) < (size_t)M || qmax < 0 ||
       smem < 0 ||
       (smem > 0 && (size_t)smem < 4 * hot_words((size_t)1 << logS, qmax)))
@@ -689,11 +763,19 @@ extern "C" int pcg_lm_launch(const void* pT, const void* ei, const void* ej,
                                   cudaMemcpyDeviceToDevice, st);
   if (e != cudaSuccess) return (int)e;
   const int threads = min(1 << logS, MAX_THREADS);
+  if (restarts > 1)
+    return smem > 0
+               ? launch_cluster(pcg_lm_kernel<true, true>, blocks, threads,
+                                smem, st, k, (float*)out, L, lam0, iters,
+                                cg_iters, cg_tol, sq_min_delta, restarts)
+               : launch_cluster(pcg_lm_kernel<false, true>, blocks, threads,
+                                0, st, k, (float*)out, L, lam0, iters,
+                                cg_iters, cg_tol, sq_min_delta, restarts);
   return smem > 0
-             ? launch_cluster(pcg_lm_kernel<true>, blocks, threads, smem, st,
-                              k, (float*)out, L, lam0, iters, cg_iters,
-                              cg_tol, sq_min_delta)
-             : launch_cluster(pcg_lm_kernel<false>, blocks, threads, 0, st,
-                              k, (float*)out, L, lam0, iters, cg_iters,
-                              cg_tol, sq_min_delta);
+             ? launch_cluster(pcg_lm_kernel<true, false>, blocks, threads,
+                              smem, st, k, (float*)out, L, lam0, iters,
+                              cg_iters, cg_tol, sq_min_delta, 1)
+             : launch_cluster(pcg_lm_kernel<false, false>, blocks, threads, 0,
+                              st, k, (float*)out, L, lam0, iters, cg_iters,
+                              cg_tol, sq_min_delta, 1);
 }

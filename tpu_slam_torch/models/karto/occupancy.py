@@ -104,14 +104,21 @@ def occupancy_from_scans(
     ``engine``: "device" traces whole blocks of scans a scatter-add
     (``gridmap.karto_counts_windows``), "device-scatter" ``scans_per_block``
     scans a step (``gridmap.karto_counts_update_scan``), both on
-    ``device``; "auto" is "device". "native", the reference's C++ host
-    rasterizer, is not ported."""
+    ``device``; "native" runs the reference's C++ host rasterizer
+    (``native.karto_counts``, the same semantics, on the host) and raises
+    RuntimeError when the native library is unavailable. "auto" is
+    "device". The reference's "auto" takes the native engine where the
+    library loads: its measurement was a TPU's, on which the one-hot
+    window matmuls ran ~24× slower than the C++ rasterizer. The port's
+    device engine is a blocked scatter-add, not those windows, and the
+    native engine's host time against it on the card is an open
+    measurement (PERF.md); the default changes only on it."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     if engine == "native":
-        raise NotImplementedError(
-            "the native C++ rasterizer (engine='native') is not ported yet "
-            "(ROADMAP queue 1, item 5: native/)")
+        return _native_occupancy(grid_cfg, poses, pts_laser, ranges,
+                                 range_threshold, min_range, max_range,
+                                 min_pass_through, occupancy_threshold)
     T = poses.shape[0]
     if T == 0:
         return np.full((grid_cfg.size_y, grid_cfg.size_x), -1, np.int8)
@@ -135,6 +142,36 @@ def occupancy_from_scans(
     out = gm.karto_occupancy(pc.reshape(-1), hc.reshape(-1),
                              min_pass_through, occupancy_threshold)
     return out.cpu().numpy().reshape(grid_cfg.size_y, grid_cfg.size_x)
+
+
+def _native_occupancy(grid_cfg, poses, pts_laser, ranges, range_threshold,
+                      min_range, max_range, min_pass_through,
+                      occupancy_threshold) -> np.ndarray:
+    """The native engine (``tpu_slam/models/karto/occupancy.py:152-177``):
+    world endpoints from the corrected poses on the host in float32, the
+    C++ pass/hit counters, the same thresholds."""
+    from tpu_slam_torch import native
+
+    if not native.available():
+        raise RuntimeError(
+            f"native library unavailable: {native.build_error()}")
+    if poses.shape[0] == 0:
+        return np.full((grid_cfg.size_y, grid_cfg.size_x), -1, np.int8)
+    p32 = np.asarray(poses, np.float32)
+    c = np.cos(p32[:, 2])[:, None]
+    s = np.sin(p32[:, 2])[:, None]
+    pl32 = np.asarray(pts_laser, np.float32)
+    with np.errstate(invalid="ignore"):
+        wx = p32[:, 0:1] + c * pl32[..., 0] - s * pl32[..., 1]
+        wy = p32[:, 1:2] + s * pl32[..., 0] + c * pl32[..., 1]
+    ends = np.stack([wx, wy], axis=-1)
+    pc, hc = native.karto_counts(
+        p32[:, :2], ends, np.asarray(ranges, np.float32), grid_cfg,
+        range_threshold, min_range, max_range,
+    )
+    passed = pc > min_pass_through
+    occ = passed & (hc / np.maximum(pc, 1) > occupancy_threshold)
+    return np.where(occ, 100, np.where(passed, 0, -1)).astype(np.int8)
 
 
 def _map_inputs(slam):

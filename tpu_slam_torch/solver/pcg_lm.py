@@ -6,7 +6,9 @@ This is the route of the graphs that do not band under RCM, below
 graphs, whose loops braid the laps together. The LM schedule is doSPA's;
 each step runs ``cg_iters`` PCG iterations on H δ = −b, stopping once
 ‖r‖² ≤ cg_tol·‖b‖², with the damped 3×3 diagonal blocks inverted as the
-preconditioner.
+preconditioner. With ``cg_restarts`` > 1 it runs that many such runs,
+each from the true residual of the last one's solution and a fresh
+Krylov space (the reference's restarted CG, ``cg_solve(restarts=)``).
 
 On ``cuda`` ``fused_lm_solve`` launches ``csrc/pcg_lm.cu`` as one
 thread-block cluster, the nodes cut into ranges a block each
@@ -94,17 +96,20 @@ def _incidence(ei: np.ndarray, ej: np.ndarray, M: int):
 
 def fused_lm_solve(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
                    iters: int, cg_iters: int, cg_tol: float,
-                   sq_min_delta: float):
+                   sq_min_delta: float, cg_restarts: int = 1):
     """Whole LM solve. poses (M, 3) f32, ei/ej (E,) int64, means (E, 3),
     infos (E, 3, 3), mask (E,) bool, free_mask (M,) bool. Returns
     (poses (M, 3), cost0, cost, iterations, good, packed): ``packed`` is the
     (8, max(M, 4)) array with the poses in rows 0..2 and (cost0, cost, good,
     iters) in row 3, lanes 0..3. The kernel also puts the number of PCG
-    iterations it ran in row 4, lane 0 (0 from the plain version)."""
+    iterations it ran, every restart's, in row 4, lane 0 (0 from the plain
+    version)."""
+    if cg_restarts < 1:
+        raise ValueError(f"cg_restarts must be at least 1, not {cg_restarts}")
     run = pcg_lm_plain if _dispatch.route(poses) == "cpu" else _launch
     packed = run(poses, ei, ej, means, infos, mask, free_mask, lam0,
                  iters=iters, cg_iters=cg_iters, cg_tol=cg_tol,
-                 sq_min_delta=sq_min_delta)
+                 sq_min_delta=sq_min_delta, cg_restarts=cg_restarts)
     M = poses.shape[0]
     return (packed[0:3, :M].T, packed[3, 0], packed[3, 1], packed[3, 3],
             packed[3, 2], packed)
@@ -118,7 +123,7 @@ def _w6(infos, mask):
 
 
 def _launch(poses, ei, ej, means, infos, mask, free_mask, lam0, *, iters,
-            cg_iters, cg_tol, sq_min_delta):
+            cg_iters, cg_tol, sq_min_delta, cg_restarts=1):
     dev = poses.device
     W6 = _w6(infos, mask)
     M, E = poses.shape[0], ei.shape[0]
@@ -156,7 +161,7 @@ def _launch(poses, ei, ej, means, infos, mask, free_mask, lam0, *, iters,
     _build.launch(
         "pcg_lm", *(a.data_ptr() for a in args), out.data_ptr(), L,
         scratch.data_ptr(), float(lam0), M, E, iters, cg_iters, float(cg_tol),
-        float(sq_min_delta), blocks, logS, qmax, smem,
+        float(sq_min_delta), blocks, logS, qmax, smem, int(cg_restarts),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _dispatch.count_launch("pcg_lm")
@@ -184,9 +189,12 @@ def _inv3_cofactor(D):
                         torch.stack([c02, c12, c22], -1)], -2) * inv_det[:, None, None]
 
 
-def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol):
+def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol, restarts=1):
     """Block-Jacobi PCG for H δ = −b with the damped, gauge-fixed diagonal
-    blocks; (M, 3) delta."""
+    blocks; (M, 3) delta. ``restarts`` runs of at most ``cg_iters``
+    iterations, each after the first from the true residual of the
+    solution so far and a fresh Krylov space, all against the first
+    run's stopping threshold (``cg_solve(restarts=)``)."""
     eye3 = torch.eye(3, dtype=Hd.dtype, device=Hd.device)
     one_lam = float(np.float32(1.0) + lam)
     fm3 = fm[:, None, None]
@@ -208,28 +216,29 @@ def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol):
     bb = -b * fmc
     stop2 = cg_tol * torch.sum(bb * bb)
     x = torch.zeros_like(bb)
-    r = bb
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    for _ in range(cg_iters):
-        if not bool(torch.sum(r * r) > stop2):
-            break  # r no longer changes: every later iteration is frozen
-        Ap = mv(p)
-        pAp = torch.sum(p * Ap)
-        alpha = rz / torch.where(pAp != 0.0, pAp, torch.ones_like(pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
+    for run in range(restarts):
+        r = bb - mv(x) if run else bb  # x = 0 on the first run
         z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(rz != 0.0, rz, torch.ones_like(rz))
-        p = z + beta * p
-        rz = rz_new
+        p = z
+        rz = torch.sum(r * z)
+        for _ in range(cg_iters):
+            if not bool(torch.sum(r * r) > stop2):
+                break  # r no longer changes: every later step is frozen
+            Ap = mv(p)
+            pAp = torch.sum(p * Ap)
+            alpha = rz / torch.where(pAp != 0.0, pAp, torch.ones_like(pAp))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond(r)
+            rz_new = torch.sum(r * z)
+            beta = rz_new / torch.where(rz != 0.0, rz, torch.ones_like(rz))
+            p = z + beta * p
+            rz = rz_new
     return x
 
 
 def pcg_lm_plain(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
-                 iters, cg_iters, cg_tol, sq_min_delta):
+                 iters, cg_iters, cg_tol, sq_min_delta, cg_restarts=1):
     """Plain PyTorch version of the PCG-LM kernel, with the arguments of
     ``fused_lm_solve``; returns the packed (8, max(M, 4)) array."""
     M = poses.shape[0]
@@ -238,7 +247,8 @@ def pcg_lm_plain(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
 
     def step(P, lam):
         Hd, Hij, b = normal_equations(P, ei, ej, means, om, M)
-        return _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol)
+        return _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol,
+                    cg_restarts)
 
     def wrap(cand):
         return torch.cat([cand[:, :2], norm_angle(cand[:, 2:])], dim=1)

@@ -22,8 +22,10 @@ Routing (``_route``) follows the reference's on its TPU, in its order:
     sparse-direct LM on the host (``_host_direct_lm``), ``use_schur`` or
     not; with ``host_direct_fallback=False`` the device f64 Schur solve,
     which raises;
-  * ``use_schur`` or ``cg_restarts > 1`` raise;
-  * any other graph → the PCG LM.
+  * ``use_schur`` raises;
+  * any other graph → the PCG LM, with ``cg_restarts`` runs of CG a step
+    (the reference's TPU sends ``cg_restarts > 1`` to its XLA LM program,
+    the same block-Jacobi PCG LM as its fused kernel).
 The device routes launch their CUDA kernel on ``cuda`` and run its plain
 version on ``cpu``; the host arm runs on the host on either device.
 Routes not ported raise ``NotImplementedError`` naming the ROADMAP item
@@ -221,8 +223,6 @@ _UNPORTED = {
                  "is not ported yet (ROADMAP queue 1, item 7)",
     "schur": "the Schur-complement solve (use_schur) is not ported yet "
              "(ROADMAP queue 1, item 7)",
-    "cg_restarts": "restarted CG (cg_restarts > 1) is not ported yet (ROADMAP "
-                   "queue 1, item 3)",
 }
 
 
@@ -248,7 +248,7 @@ def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
            band_spec=lambda: None) -> str:
     """The solve route of a graph of ``num_nodes`` nodes and ``num_edges``
     edges on ``device``: "dense", "pcg", "direct" or "host_f64", or the
-    name of an unported route ("f64_schur", "schur", "cg_restarts").
+    name of an unported route ("f64_schur", "schur").
     ``band_spec()`` is called only for a graph above ``use_dense_below`` and
     says whether it bands (None: it does not). Small graphs follow the
     reference's TPU conditions for its fused kernel
@@ -266,8 +266,6 @@ def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
         return "host_f64" if cfg.host_direct_fallback else "f64_schur"
     if cfg.use_schur:
         return "schur"
-    if cfg.cg_restarts > 1:
-        return "cg_restarts"
     return "pcg"
 
 
@@ -502,6 +500,7 @@ class PoseGraphSolver:
             free, cfg.initial_lambda, iters=iters, cg_iters=cfg.cg_iterations,
             cg_tol=cfg.cg_tolerance,
             sq_min_delta=_sq_min_delta(cfg.convergence_delta),
+            cg_restarts=max(cfg.cg_restarts, 1),
         )
         return PendingSolve(self, out[5])
 

@@ -1,6 +1,6 @@
-"""Checkpoint / resume of ``KartoSLAM`` — the port's copy of the Karto
-half of ``tpu_slam/utils/checkpoint.py``, on the same ``.npz`` + JSON
-format, so the port loads a snapshot that the JAX package wrote (and the
+"""Checkpoint / resume of ``KartoSLAM`` and ``HectorSLAM`` — the port's
+copy of ``tpu_slam/utils/checkpoint.py``, on the same ``.npz`` (+ JSON)
+formats, so the port loads a snapshot that the JAX package wrote (and the
 JAX package one that the port wrote).
 
 The reference has no live checkpointing (SURVEY §5): `karto::Dataset` retains
@@ -151,3 +151,36 @@ def load_karto(slam: "KartoSLAM", path: str) -> None:
             int(z["edge_i"][k]), int(z["edge_j"][k]), z["edge_mean"][k],
             information=z["edge_info"][k],
         )
+
+
+def save_hector(slam, path: str) -> None:
+    """Snapshot a HectorSLAM instance (grids + pose), with the reference's
+    keys: ``last_pose``, ``last_update`` (NaN before the first map
+    update) and ``grid{i}``, each level a flat (size_y·size_x,) float32."""
+    np.savez_compressed(
+        path,
+        last_pose=slam.last_pose.cpu().numpy(),
+        last_update=(
+            slam._last_map_update_pose
+            if slam._last_map_update_pose is not None
+            else np.full(3, np.nan)
+        ),
+        **{f"grid{i}": g.cpu().numpy() for i, g in enumerate(slam.grids)},
+    )
+
+
+def load_hector(slam, path: str) -> None:
+    """Restore a Hector snapshot (the port's or the reference's) into a
+    HectorSLAM of the same pyramid, on the mapper's device."""
+    import torch
+
+    z = np.load(path)
+    f32 = dict(dtype=torch.float32, device=slam.device)
+    slam.grids = [
+        torch.as_tensor(np.asarray(z[f"grid{i}"], np.float32), **f32)
+        for i in range(len(slam.grids))
+    ]
+    slam.last_pose = torch.as_tensor(
+        np.asarray(z["last_pose"], np.float32), **f32)
+    lu = z["last_update"]
+    slam._last_map_update_pose = None if np.isnan(lu).any() else lu

@@ -81,13 +81,33 @@ def save_map(
     return pgm_path, yaml_path
 
 
+def _read_map_yaml(path: str) -> dict:
+    """map_server's YAML: flat ``key: value`` lines, ``origin`` a flow
+    list of three numbers. Read without PyYAML, which the port does not
+    need: ``image`` as a string, ``origin`` as a list of floats, every
+    other value as a float where it is one."""
+    meta = {}
+    with open(path) as f:
+        for line in f:
+            key, sep, value = line.split("#", 1)[0].partition(":")
+            if not sep:
+                continue
+            value = value.strip().strip("'\"")
+            if value.startswith("["):
+                meta[key.strip()] = [float(v) for v in
+                                     value.strip("[]").split(",")]
+                continue
+            try:
+                meta[key.strip()] = float(value)
+            except ValueError:
+                meta[key.strip()] = value
+    return meta
+
+
 def load_map(yaml_path: str) -> tuple[np.ndarray, GridConfig]:
     """Read a map_server YAML + PGM pair → (int8 nav_msgs map, GridConfig)."""
-    import yaml
-
-    with open(yaml_path) as f:
-        meta = yaml.safe_load(f)
-    img = meta["image"]
+    meta = _read_map_yaml(yaml_path)
+    img = str(meta["image"])
     if not os.path.isabs(img):
         img = os.path.join(os.path.dirname(os.path.abspath(yaml_path)), img)
     pix = _read_pgm(img)

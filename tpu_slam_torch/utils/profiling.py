@@ -1,5 +1,6 @@
-"""Stage timers and throughput counters — the port's own copy of
-``tpu_slam/utils/profiling.py`` (``StageTimer``, ``ThroughputCounter``).
+"""Stage timers, throughput counters and a device trace — the port's own
+copy of ``tpu_slam/utils/profiling.py`` (``StageTimer``,
+``ThroughputCounter``; ``device_trace`` on ``torch.profiler``).
 
 ``sync`` is the timing barrier: ``torch.cuda.synchronize()`` when the
 result holds a CUDA tensor, nothing on the CPU (PyTorch's CPU ops finish
@@ -83,3 +84,23 @@ class ThroughputCounter:
     @property
     def per_sec(self) -> float:
         return self.n / max(time.perf_counter() - self.t0, 1e-9)
+
+
+@contextlib.contextmanager
+def device_trace(path: str):
+    """``torch.profiler`` trace of the block, written to ``path`` as a
+    Chrome trace (``export_chrome_trace``): host ops, and the card's
+    kernels when a CUDA device is in use. View it in Perfetto
+    (ui.perfetto.dev) or ``chrome://tracing``; it is not a TensorBoard
+    xprof trace, as the JAX package's ``device_trace`` writes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU]
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
