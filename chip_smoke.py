@@ -105,8 +105,9 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      the reference's shape test for its fused LM, as on its TPU. The ATE
      must stay ≤ 0.01 m; then ``karto_map`` of the counted run (its wall,
      its cells; int8-equal to the CPU's map from the same corrected
-     poses), its scans/s (median of 3 runs after the counted one, which
-     warms it), the stage timer, and one run under ``torch.profiler``;
+     poses), its scans/s (one run after the counted one, which warms it),
+     the stage timer, and a run of its first 100 scans under
+     ``torch.profiler``;
      then the native library: it must build with g++ and load, and
      ``occupancy_from_scans(engine="native")`` (the C++ host rasterizer)
      must give the device engine's map, int8 for int8, on the counted
@@ -135,7 +136,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      plain version on that graph, ``karto_map`` of the result (its wall
      and cells; on the card and the CPU int8-equal on a stride of the
      scans whose CPU run takes ~25 s) and a profile of the run's first
-     100 scans;
+     50 scans;
  14d. GMapping at full width (examples/run_gmapping.py: 352 scans, the
      1,024² grid): hits and visits equal to the CPU's run, cell means
      within 1e-5 relative, the same map, > 200 occupied and > 10,000
@@ -184,6 +185,24 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      Hector mapper steps to the original's pose), and one ``offline
      --bag`` run under ``utils/profiling.device_trace`` whose Chrome trace
      names the PL-ICP and PCG-LM kernels;
+ 19c. the multi-device layer (``phase_mesh``), ranks spawned from this
+     script (``torch.multiprocessing``, spawn): (a) one rank over NCCL,
+     (b) two ranks sharing the card over gloo (NCCL refuses two ranks on
+     one card), each rank with the launch and collective counters zeroed
+     before each run: the sharded packed matcher on the 512-pair batch
+     (bit-equal to the unsharded kernel), ``PoseGraphSolver(mesh)`` on the
+     mission's loop-closed graph from its chain (the mesh CG route; poses
+     within 5e-4 and cost within 1e-2 relative of ``pcg_lm.cu``; then one
+     gather of a CG matvec's edge terms, timed), ``offline_slam(mesh)`` on
+     the mission cut to its first round (the same loops, poses within 5e-4
+     of the unsharded run) and whole (ATE ≤ 5 mm, the same loop count and
+     the chain within 1e-5 of the unsharded run; the same loops and poses
+     within 5e-4 of the mesh's solver run in this process without ranks),
+     ``KartoSLAM(mesh)`` on the 352-scan recipe (the same
+     accepts and closures, trajectory within 5e-3) and ``HectorSLAM(mesh)``
+     on the 150-scan recipe at the full grid (ATE ≤ 0.06 m; (a) and (b)
+     within 1e-4, every level's map equal); every rank's results equal;
+     a rank that fails or passes its deadline fails the script;
  20. the streamed CR-LM kernel against its plain version on bench_solver's
      rings of 4,096 and 16,384 nodes (K 1,024 and 4,096), then on edge
      cases (W = 2, W = 8, 32,768 nodes, and a 24,576-node chain with
@@ -205,7 +224,8 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      recipe: every match a PL-ICP launch, the corrected chain's ATE under
      the raw one's;
  24. one JSON line with every kernel (its launches, the PL-ICP and
-     correlative kernels' counting the outdoor mission's too, the
+     correlative kernels' counting the outdoor mission's and every mesh
+     rank's too, the
      correlative and LM kernels' the online outdoor run's, every kernel's
      the command line's runs, the PCG-LM's the restarted ring's, its error
      against its plain version, both times, and its bound: the larger of
@@ -225,6 +245,7 @@ import dataclasses
 import io
 import json
 import re
+import socket
 import subprocess
 import time
 from pathlib import Path
@@ -273,8 +294,9 @@ from tpu_slam_torch.ops.plicp import plicp_match
 from tpu_slam_torch.ops.undistort import undistort_scan
 from tpu_slam_torch.parallel.distributed_step import (
     _chain_matcher, _gather_scan, _loop_selector, _match_fn,
-    make_chain_matcher, make_loop_selector,
+    make_chain_matcher, make_loop_selector, make_packed_indexed_matcher,
 )
+from tpu_slam_torch.parallel.mesh import make_mesh
 from tpu_slam_torch.solver import banded, cr_lm, pcg_lm
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
 from tpu_slam_torch.solver.cr_stream import stream_schedule, streamed_cr_lm
@@ -317,7 +339,8 @@ KARTO_REF = {"accepted": 126, "closures": 2, "ate": 0.00577}
 # accepted scans, solves and ATE, and the ATE bar, 2x that ATE
 OUTDOOR_ONLINE_REF = {"accepted": 1149, "solves": 61, "ate": 0.024}
 OUTDOOR_ONLINE_ATE_MAX = 0.05  # m
-OUTDOOR_ONLINE_PROFILE_SCANS = 100  # the profiled window of the run
+OUTDOOR_ONLINE_PROFILE_SCANS = 50  # the profiled window of the run
+KARTO_PROFILE_SCANS = 100  # the profiled window of the online Karto run
 MAP_CPU_BUDGET_S = 25.0  # the CPU run the outdoor map is held to (≤ 30 s)
 GMAPPING_MIN = {"occupied": 200, "free": 10_000}  # examples/run_gmapping.py
 GMAPPING_MEANS_RTOL = 1e-5
@@ -1058,7 +1081,7 @@ def phase_main_path(dev):
     if launches["cr_lm"] != 1 or not np.isfinite(stats.final_cost):
         raise AssertionError("the bench graph solve did not run the CR-LM "
                              "kernel")
-    return cfg, scans, odom, res, launches, batches
+    return cfg, scans, odom, gt, res, launches, batches
 
 
 def pose_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -2000,7 +2023,8 @@ def karto_run(cfg, scans, odom, dev):
 
 def phase_karto_main(dev, cfg, scans, odom, gt):
     """The counted online Karto run at full width, its rate, stages and
-    profile; (its launches, the counted run's mapper)."""
+    profile; (its launches, the counted run's mapper, its accepted
+    scans)."""
     T = len(gt)
     _dispatch.reset_launches()
     slam, acc, wall = karto_run(cfg, scans, odom, dev)
@@ -2029,17 +2053,17 @@ def phase_karto_main(dev, cfg, scans, odom, gt):
     print("karto stage timer (counted run):\n" + slam.timer.report(),
           flush=True)
     karto_map_check("karto online map", slam, dev)
-    # the counted run warmed the path: 3 timed runs follow it
-    walls = [karto_run(cfg, scans, odom, dev)[2] for _ in range(3)]
-    rates = sorted(T / w for w in walls)
-    print(f"karto: scans/s median {rates[1]:.1f} (min {rates[0]:.1f} max "
-          f"{rates[2]:.1f}) over 3 runs after the counted one, {T} scans "
-          f"offered per run", flush=True)
-    wall_us, busy, per = device_profile(
-        lambda: karto_run(cfg, scans, odom, dev))
-    print(profile_line(f"karto run ({T} scans)", wall_us, busy, per),
+    # the counted run warmed the path: one timed run follows it (a profile
+    # of the whole run took ~2 min to tear down: it profiles a window)
+    wall = karto_run(cfg, scans, odom, dev)[2]
+    print(f"karto: scans/s {T / wall:.1f} in one run after the counted one, "
+          f"{T} scans offered", flush=True)
+    n = KARTO_PROFILE_SCANS
+    wall_us, busy, per = device_profile(lambda: karto_run(
+        cfg, index_scan(scans, slice(0, n)), odom[:n], dev))
+    print(profile_line(f"karto run (first {n} scans)", wall_us, busy, per),
           flush=True)
-    return launches, slam
+    return launches, slam, acc
 
 
 # --- the outdoor offline mission ------------------------------------------
@@ -2723,8 +2747,8 @@ def phase_lesson_main(dev) -> int:
     over the recipe's 200 scans. Every NN call must launch the kernel
     (199 × 20, 199 × 10 and 199 × 10), each ATE stay within the slack of
     the reference's, and the keyframe count within ±1 of the reference's;
-    then each model's scans/s (median of 3 runs after the counted one,
-    which warms it) and one run of the first ``LESSON_PROFILE_SCANS``
+    then each model's scans/s (one run after the counted one, which
+    warms it) and one run of the first ``LESSON_PROFILE_SCANS``
     under ``torch.profiler`` (its teardown takes several times the run's
     wall at the ~2,300 kernels a scan of PL-ICP launches). Returns the NN launches of the three
     counted runs."""
@@ -2768,15 +2792,10 @@ def phase_lesson_main(dev) -> int:
         if kf is not None and abs(len(kf) - len(LESSON_REF_KEYFRAMES)) > 1:
             raise AssertionError("PLICPOdometry's keyframes differ by > 1")
         total += launches["nn"]
-        walls = []
-        for _ in range(3):  # the counted run was the warm one
-            t0 = time.perf_counter()
-            lesson_run(make(), scans)
-            walls.append(time.perf_counter() - t0)
-        rates = sorted(T / w for w in walls)
-        print(f"lesson {name}: scans/s median {rates[1]:.1f} (min "
-              f"{rates[0]:.1f} max {rates[2]:.1f}) over 3 runs after the "
-              f"counted one", flush=True)
+        t0 = time.perf_counter()  # the counted run was the warm one
+        lesson_run(make(), scans)
+        print(f"lesson {name}: scans/s {T / (time.perf_counter() - t0):.1f} "
+              "in one run after the counted one", flush=True)
         prof = device_profile(lambda: lesson_run(make(), window))
         print(profile_line(f"lesson {name} run, first {LESSON_PROFILE_SCANS} "
                            "scans", *prof), flush=True)
@@ -3630,6 +3649,360 @@ def phase_bag_cli(dev) -> dict:
     return total
 
 
+# --- the multi-device layer -----------------------------------------------
+
+MESH_DIR = SCRATCH / "mesh"
+# (label, ranks, backend): NCCL at one rank, and two ranks sharing the one
+# card, which NCCL refuses, over gloo (its collectives copy through the host)
+MESH_CASES = (("a", 1, "nccl"), ("b", 2, "gloo"))
+MESH_DEADLINE_S = 300.0  # a case's ranks, started to joined
+MESH_PGS_POSE_TOL = 5e-4  # m / rad, the reference's mesh bars
+MESH_PGS_COST_RTOL = 1e-2
+MESH_CHAIN_TOL = 1e-5
+MESH_POSE_TOL = 5e-4  # m / rad (see mesh_inputs)
+MESH_KARTO_TOL = 5e-3
+MESH_HECTOR_TOL = 1e-4  # between the two cases
+MESH_GATHER_REPS = 50
+SCAN_FIELDS = ("ranges", "valid", "angles", "stamp", "time_increment")
+
+
+def scan_fields(scans) -> tuple:
+    return tuple(getattr(scans, f).cpu().numpy() for f in SCAN_FIELDS)
+
+
+def mesh_inputs(dev, mission, karto, hector) -> tuple[dict, dict]:
+    """The mesh phase's inputs (numpy and configs, for the ranks) and the
+    results they are held to: the 512-pair bench PL-ICP batch as a store
+    of its 1,024 scans with the unsharded packed matcher's rows (the
+    kernel), the mission's loop-closed graph from its chain poses with the
+    single-device solve (``pcg_lm.cu``), and the mission, Karto and Hector
+    recipes with their unsharded runs' results. The mission also runs cut
+    to its first detect→match→solve round (``offline.rounds`` = 1),
+    unsharded here: that round's candidates come from the chain alone, so
+    both runs match the same loops and solve the same graph. The second
+    round's candidates come from each run's own solve, and two float32
+    solvers (``pcg_lm.cu``, the mesh's plain CG) pick different loop sets
+    there, so the whole mission's poses part from the unsharded run by
+    millimetres (PERF.md §6). The whole mission runs once more here through
+    the mesh's solver on a mesh of one rank without a process group: the
+    mesh sums every edge's terms in edge order, so the ranks of either
+    case must give its loops and its poses.
+    ``mission`` = (cfg, scans, odom, gt, result), ``karto`` = (cfg, scans,
+    odom, gt, mapper, accepted), ``hector`` = (cfg, scans, gt)."""
+    cfg, args, g = plicp_bench_batch(dev)
+    B = g.shape[0]
+    store = torch.cat([args[0], args[2]]).contiguous()
+    valid = torch.cat([args[1], args[3]]).contiguous()
+    si = torch.arange(B, device=dev)
+    ti = si + B
+    packed = make_packed_indexed_matcher(cfg)(
+        store, valid, torch.zeros((1, 2), device=dev), si, ti, g)
+    mcfg, mscans, modom, mgt, res = mission
+    cfg1 = dataclasses.replace(
+        mcfg, offline=dataclasses.replace(mcfg.offline, rounds=1))
+    res1 = offline_slam(mscans, cfg1, odom=modom)
+    res_mesh = offline_slam(mscans, mcfg, odom=modom,
+                            mesh=make_mesh(device=dev))
+    ei, ej, means, infos = res.solver._edge_arrays()
+    single = solver_from_numpy(mcfg.solver, res.chain_poses, list(zip(
+        ei, ej, means, infos)), dev)
+    pgs_stats = single.compute()
+    kcfg, kscans, kodom, kgt, kslam, kacc = karto
+    hcfg, hscans, hgt = hector
+    inputs = {
+        "matcher": {"cfg": cfg, "store": store.cpu().numpy(),
+                    "valid": valid.cpu().numpy(), "si": si.cpu().numpy(),
+                    "ti": ti.cpu().numpy(), "g": g.cpu().numpy()},
+        "graph": {"cfg": mcfg.solver, "init": res.chain_poses, "ei": ei,
+                  "ej": ej, "means": means, "infos": infos},
+        "mission": {"cfg": mcfg, "cfg1": cfg1, "fields": scan_fields(mscans),
+                    "odom": modom},
+        "karto": {"cfg": kcfg, "fields": scan_fields(kscans), "odom": kodom},
+        "hector": {"cfg": hcfg, "fields": scan_fields(hscans),
+                   "pose0": hgt[0]},
+    }
+    refs = {
+        "matcher": packed.cpu().numpy(),
+        "pgs": (single.get_poses(), tuple(pgs_stats)),
+        "offline": _offline_out(res), "offline1": _offline_out(res1),
+        "offline_mesh": _offline_out(res_mesh),
+        "karto": {"accepted": list(kacc), "closures": kslam.loop_closures,
+                  "trajectory": kslam.trajectory()},
+        "mission_gt": mgt, "hector_gt": hgt,
+    }
+    return inputs, refs
+
+
+def _offline_out(res) -> dict:
+    return {"poses": res.poses, "chain": res.chain_poses,
+            "loops": len(res.loops),
+            "pairs": sorted((e.i, e.j) for e in res.loops)}
+
+
+def mesh_rank(rank: int, D: int, backend: str, device: str, port: int,
+              inputs_path: str, label: str) -> None:
+    """One rank of a mesh case (spawned; the main guard keeps the import
+    of this file from starting the chip run). It joins the process group,
+    builds ``make_mesh(D)`` on ``device`` and drives the port's mesh
+    forms, each with the launch and collective counters zeroed first: the
+    sharded packed matcher, ``PoseGraphSolver(mesh)`` (then a timed gather
+    of a CG matvec's edge terms), ``offline_slam(mesh)`` (the mission's first
+    round, then the whole mission), ``KartoSLAM(mesh)`` and
+    ``HectorSLAM(mesh)``; it pickles what it got, its walls and counts to
+    ``MESH_DIR``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from tpu_slam_torch.convert import scan_from_numpy
+    from tpu_slam_torch.parallel import mesh as pm
+    from tpu_slam_torch.parallel import multihost
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    if D == 1:  # a group of one: its collectives still make their calls
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0,
+                                timeout=multihost.INIT_TIMEOUT)
+    else:
+        multihost.initialize(f"localhost:{port}", D, rank, backend=backend)
+    mesh = pm.make_mesh(D, device=dev, backend=backend)
+    inp = pickle.loads(Path(inputs_path).read_bytes())
+    out = {"mesh": repr(mesh), "walls": {}, "launches": {},
+           "collectives": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counted(name, fn):
+        sync()
+        _dispatch.reset_launches()
+        pm.reset_collectives()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        out["walls"][name] = time.perf_counter() - t0
+        out["launches"][name] = dict(_dispatch.LAUNCHES)
+        out["collectives"][name] = dict(pm.COLLECTIVES)
+        return r
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    m = inp["matcher"]
+    out["matcher"] = counted("matcher", lambda: make_packed_indexed_matcher(
+        m["cfg"], mesh)(t(m["store"]), t(m["valid"]),
+                        torch.zeros((1, 2), device=dev), t(m["si"]),
+                        t(m["ti"]), t(m["g"]))).cpu().numpy()
+    gph = inp["graph"]
+    pgs = PoseGraphSolver(gph["cfg"], mesh=mesh)
+    pgs.add_nodes(range(len(gph["init"])), gph["init"])
+    pgs.add_constraints(gph["ei"], gph["ej"], gph["means"],
+                        informations=gph["infos"])
+    out["pgs_route"] = _route(pgs.num_nodes, pgs.num_edges, dev, pgs.cfg,
+                              pgs._band_spec, mesh)
+    out["pgs_stats"] = tuple(counted("pgs", pgs.compute))
+    out["pgs"] = pgs.get_poses()
+    # a CG matvec's collective: the rank's edges' six terms, gathered
+    x = torch.ones((-(-pgs.num_edges // D), 6), device=dev)
+    pm.all_gather_rows(x, mesh)  # warm
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(MESH_GATHER_REPS):
+        pm.all_gather_rows(x, mesh)
+    sync()
+    out["gather_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_GATHER_REPS
+    out["gather_floats"] = x.numel() * D
+    o = inp["mission"]
+    for name, key in (("offline1", "cfg1"), ("offline", "cfg")):
+        out[name] = _offline_out(counted(name, lambda: offline_slam(
+            scan_from_numpy(*o["fields"], device=dev), o[key],
+            odom=o["odom"], mesh=mesh)))
+    k = inp["karto"]
+    kslam = KartoSLAM(k["cfg"], mesh=mesh)
+    acc = counted("karto", lambda: kslam.run(
+        scan_from_numpy(*k["fields"], device=dev), k["odom"]))
+    out["karto"] = {"accepted": list(acc), "closures": kslam.loop_closures,
+                    "trajectory": kslam.trajectory()}
+    h = inp["hector"]
+    hslam = HectorSLAM(h["cfg"], mesh=mesh)
+    hslam.last_pose = torch.tensor(h["pose0"], dtype=torch.float32,
+                                   device=dev)
+    est = counted("hector", lambda: hslam.run(
+        scan_from_numpy(*h["fields"], device=dev)))
+    out["hector"] = {"est": est, "maps": [
+        hslam.to_ros_map(level=lv) for lv in range(len(hslam.grid_cfgs))]}
+    (MESH_DIR / f"{label}_rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_case(label: str, D: int, backend: str, device,
+                  inputs_path: Path) -> list[dict]:
+    """Spawn the case's D ranks (never fork: this process holds a CUDA
+    context) and join them against ``MESH_DEADLINE_S``: a rank that fails
+    raises here, and at the deadline every rank still running is killed
+    and the phase fails. Returns each rank's results."""
+    import pickle
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = tmp.start_processes(
+        mesh_rank, args=(D, backend, str(device), port, str(inputs_path),
+                         label), nprocs=D, join=False, start_method="spawn")
+    end = time.perf_counter() + MESH_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(end - time.perf_counter(), 0.0)):
+            if time.perf_counter() >= end:
+                raise AssertionError(f"mesh case ({label}): the ranks passed "
+                                     f"the {MESH_DEADLINE_S:.0f} s deadline")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [pickle.loads((MESH_DIR / f"{label}_rank{r}.pkl").read_bytes())
+            for r in range(D)]
+
+
+def _max_gap(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64)
+                               - np.asarray(b, np.float64))))
+
+
+def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
+    """Each rank against rank 0 (the same results on every rank) and
+    rank 0 against the single-device results and the mesh's solver without
+    ranks, to the bars above; prints the case's line."""
+    o = outs[0]
+    for r, other in enumerate(outs[1:], 1):
+        for key in ("matcher", "pgs"):
+            if not np.array_equal(other[key], o[key]):
+                raise AssertionError(f"mesh ({label}): rank {r}'s {key} "
+                                     "differs from rank 0's")
+        for key, sub in (("offline1", "poses"), ("offline", "poses"),
+                         ("karto", "trajectory"), ("hector", "est")):
+            if not np.array_equal(other[key][sub], o[key][sub]):
+                raise AssertionError(f"mesh ({label}): rank {r}'s {key} "
+                                     "differs from rank 0's")
+    matcher_eq = np.array_equal(o["matcher"], refs["matcher"])
+    pposes, pstats = refs["pgs"]
+    pgs_gap = _max_gap(o["pgs"], pposes)
+    cost_rel = abs(o["pgs_stats"][2] - pstats[2]) / max(abs(pstats[2]), 1e-12)
+    off1, roff1 = o["offline1"], refs["offline1"]
+    off1_gap = _max_gap(off1["poses"], roff1["poses"])
+    off1_same = off1["pairs"] == roff1["pairs"]
+    off, roff = o["offline"], refs["offline"]
+    off_ate = float(ate_rmse(off["poses"], refs["mission_gt"]))
+    ref_ate = float(ate_rmse(roff["poses"], refs["mission_gt"]))
+    chain_gap = _max_gap(off["chain"], roff["chain"])
+    off_gap = _max_gap(off["poses"], roff["poses"])
+    pairs_differ = len(set(off["pairs"]) ^ set(roff["pairs"]))
+    moff = refs["offline_mesh"]
+    mesh_gap = _max_gap(off["poses"], moff["poses"])
+    mesh_same = off["pairs"] == moff["pairs"]
+    mesh_bits = np.array_equal(off["poses"], moff["poses"])
+    kt, rk = o["karto"], refs["karto"]
+    karto_same = (kt["accepted"] == rk["accepted"]
+                  and kt["closures"] == rk["closures"])
+    karto_gap = (_max_gap(kt["trajectory"], rk["trajectory"]) if karto_same
+                 else float("inf"))
+    hec_ate = float(ate_rmse(o["hector"]["est"], refs["hector_gt"],
+                             align=False))
+    coll = o["collectives"]["pgs"]
+    lm_iters = o["pgs_stats"][0]
+    per_rank = [(sum(x["launches"][k]["plicp_fused"]
+                     for k in ("matcher", "offline1", "offline")),
+                 x["launches"]["karto"]["correlative_response"])
+                for x in outs]
+    walls = " ".join(f"{k} {v:.2f} s" for k, v in o["walls"].items())
+    print(f"mesh ({label}): D={D} {backend} ({o['mesh']}); walls {walls}; "
+          f"matcher bit-equal to the unsharded kernel {matcher_eq}; solve "
+          f"route {o['pgs_route']} {lm_iters} good LM iterations, "
+          f"collectives {coll} (a matvec's gather of {o['gather_floats']} "
+          f"floats {o['gather_ms']:.4f} ms), poses max|d| {pgs_gap:.3e} (bar "
+          f"{MESH_PGS_POSE_TOL}) cost {o['pgs_stats'][2]:.6g} against "
+          f"{pstats[2]:.6g} (rel {cost_rel:.2e}); offline first round: the same "
+          f"{off1['loops']} loops {off1_same}, poses max|d| {off1_gap:.3e} "
+          f"(bar {MESH_POSE_TOL}); offline ATE {off_ate:.5f} m (unsharded "
+          f"{ref_ate:.5f}) loops {off['loops']} (unsharded {roff['loops']}; "
+          f"{pairs_differ} pairs in one set only) chain max|d| "
+          f"{chain_gap:.3e} poses max|d| {off_gap:.3e}; against the mesh's "
+          f"solver without ranks: the same {moff['loops']} loops "
+          f"{mesh_same}, poses max|d| {mesh_gap:.3e} (bar {MESH_POSE_TOL}; "
+          f"bit-equal {mesh_bits}); karto accepted "
+          f"{len(kt['accepted'])} closures {kt['closures']} (unsharded "
+          f"{len(rk['accepted'])}, {rk['closures']}) trajectory max|d| "
+          f"{karto_gap:.3e}; hector ATE {hec_ate:.5f} m; PL-ICP and "
+          f"correlative launches per rank {per_rank}", flush=True)
+    checks = [
+        (matcher_eq, "the sharded matcher differs from the unsharded kernel"),
+        (o["pgs_route"] == "mesh_cg", "the mission graph did not take the "
+         "mesh CG route"),
+        (pgs_gap <= MESH_PGS_POSE_TOL and cost_rel <= MESH_PGS_COST_RTOL,
+         "PoseGraphSolver(mesh) is off the single-device solve"),
+        (off1_same and off1_gap <= MESH_POSE_TOL,
+         "offline_slam(mesh) is off the unsharded mission's first round"),
+        (off_ate <= MISSION_ATE_MAX and off["loops"] == roff["loops"]
+         and chain_gap <= MESH_CHAIN_TOL,
+         "offline_slam(mesh) is off the unsharded mission"),
+        (mesh_same and mesh_gap <= MESH_POSE_TOL,
+         "offline_slam(mesh) is off the mesh's solver run without ranks"),
+        (karto_same and karto_gap <= MESH_KARTO_TOL,
+         "KartoSLAM(mesh) is off the single-device run"),
+        (hec_ate <= HECTOR_ATE_MAX, "HectorSLAM(mesh) ATE above its bar"),
+        (all(p > 0 and c > 0 for p, c in per_rank),
+         "a rank launched no PL-ICP or no correlative kernel"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"mesh ({label}): {what}")
+
+
+def phase_mesh(dev, inputs: dict, refs: dict) -> dict:
+    """The mesh forms on the card in two cases: (a) one rank over NCCL,
+    (b) two ranks sharing the card over gloo. Each case is a correctness
+    run, not a scaling measurement. Every rank must give the same results;
+    rank 0 is held to the single-device results (``mesh_case_check``) and
+    the Hector runs of the two cases to each other (trajectory within
+    ``MESH_HECTOR_TOL``, maps equal). Returns the launches of every rank
+    of both cases."""
+    import pickle
+
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    path = MESH_DIR / "inputs.pkl"
+    path.write_bytes(pickle.dumps(inputs))
+    total = dict.fromkeys(_dispatch.LAUNCHES, 0)
+    hector = {}
+    for label, D, backend in MESH_CASES:
+        t0 = time.perf_counter()
+        outs = run_mesh_case(label, D, backend, dev, path)
+        print(f"mesh ({label}): {D} rank(s) spawned and joined in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        mesh_case_check(label, D, backend, outs, refs)
+        for x in outs:
+            for run in x["launches"].values():
+                for k, v in run.items():
+                    total[k] += v
+        hector[label] = outs[0]["hector"]
+    a, b = hector["a"], hector["b"]
+    gap = _max_gap(a["est"], b["est"])
+    maps_eq = all(np.array_equal(x, y) for x, y in zip(a["maps"], b["maps"]))
+    print(f"mesh hector (a) against (b): trajectory max|d| {gap:.3e} (bar "
+          f"{MESH_HECTOR_TOL}), every level's map equal {maps_eq}",
+          flush=True)
+    if not (gap <= MESH_HECTOR_TOL and maps_eq):
+        raise AssertionError("HectorSLAM(mesh) differs between one rank and "
+                             "two")
+    return total
+
+
 class PhaseClock:
     """Prints the wall of each group of phases and the running total, so
     that a run shows where its time limit goes."""
@@ -3661,7 +4034,7 @@ def main() -> None:
     phase_host_f64(dev)
     phase_offline_corrected(dev)
     clock("large pose graphs, host f64 arm, corrected mission")
-    cfg, scans, odom, res, launches, batches = phase_main_path(dev)
+    cfg, scans, odom, gt, res, launches, batches = phase_main_path(dev)
     phase_mission_batches(cfg, res.poses.shape[0], batches)
     pcg, pcg_base = phase_pcg(dev, res)
     phase_pcg_edges(dev)
@@ -3678,7 +4051,8 @@ def main() -> None:
     phase_correlative_edges(dev, records, front, loop)
     phase_karto_layers(dev, records)
     clock("correlative kernel")
-    karto_launches, kslam = phase_karto_main(dev, kcfg, kscans, kodom, kgt)
+    karto_launches, kslam, kacc = phase_karto_main(dev, kcfg, kscans, kodom,
+                                                   kgt)
     clock("online Karto")
     phase_native(dev, kslam, smi)
     clock("native library")
@@ -3698,12 +4072,18 @@ def main() -> None:
     clock("scan matching, undistortion, features")
     cli_launches = phase_bag_cli(dev)
     clock("command line and bag replay")
+    mesh_launches = phase_mesh(dev, *mesh_inputs(
+        dev, (cfg, scans, odom, gt, res),
+        (kcfg, kscans, kodom, kgt, kslam, kacc),
+        hector_seq(HECTOR_SCANS, dev)))
+    clock("multi-device layer")
     kernels = [
         {"name": "plicp_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/plicp_fused.cu",
          "replaces": "tpu_slam/ops/pallas/plicp_fused.py:585",
          "launches": launches["plicp_fused"]
-         + outdoor_launches["plicp_fused"] + cli_launches["plicp_fused"],
+         + outdoor_launches["plicp_fused"] + cli_launches["plicp_fused"]
+         + mesh_launches["plicp_fused"],
          **plicp},
         {"name": "cr_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_lm.cu",
@@ -3732,7 +4112,8 @@ def main() -> None:
          "launches": karto_launches["correlative_response"]
          + outdoor_launches["correlative_response"]
          + online_launches["correlative_response"]
-         + cli_launches["correlative_response"], **resp},
+         + cli_launches["correlative_response"]
+         + mesh_launches["correlative_response"], **resp},
         {"name": "nn", "route": "cuda", "source": "tpu_slam_torch/csrc/nn.cu",
          "replaces": "tpu_slam/ops/pallas/nn.py:50",
          "launches": nn_launches + cli_launches["nn"], **nn},

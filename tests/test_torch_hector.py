@@ -350,8 +350,19 @@ def test_map_only_and_mesh(hector_seq):
     assert np.sum(out.to_ros_map() != ref.to_ros_map()) <= 1e-3 * np.sum(
         ref.to_ros_map() != -1)
     assert (out.to_ros_map(level=1) == 100).sum() > 20
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        HectorSLAM(port_config(cfg), device="cpu", mesh=object())
+    # the striped map over a mesh of one rank: the same map, and the
+    # sharded GN match to the unsharded one's pose
+    from tpu_slam_torch.parallel.mesh import make_mesh
+
+    striped = HectorSLAM(port_config(cfg), device="cpu",
+                         mesh=make_mesh(device="cpu"))
+    for t in range(20):
+        striped.update_only(index_scan(tscans, t), seq.gt_poses[t])
+    for k in range(3):
+        np.testing.assert_array_equal(striped.to_ros_map(level=k),
+                                      out.to_ros_map(level=k))
+    np.testing.assert_allclose(striped.step(index_scan(tscans, 20)),
+                               out.step(index_scan(tscans, 20)), atol=1e-4)
 
 
 # --- the kernel's design, held on the CPU ---------------------------------

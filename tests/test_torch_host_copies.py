@@ -195,6 +195,24 @@ def test_geometry_np_is_the_same():
                                   jgnp.relative(a[:, None], b[None]))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_loop_candidates_are_the_same(seed):
+    """``parallel/loop_search.loop_candidates``, the host chain
+    extraction, on random distance rows with random exclusions."""
+    from tpu_slam.parallel.loop_search import loop_candidates as jlc
+    from tpu_slam_torch.parallel.loop_search import loop_candidates as tlc
+
+    rng = np.random.default_rng(seed)
+    d2 = np.where(rng.random(200) < 0.6, rng.uniform(0, 4, 200),
+                  rng.uniform(4, 100, 200))
+    exclude = set(rng.choice(200, 10, replace=False).tolist())
+    for ex in (None, exclude):
+        for min_chain in (1, 3, 5):
+            got = tlc(d2, max_distance=2.0, min_chain=min_chain, exclude=ex)
+            assert got == jlc(d2, 2.0, min_chain, ex)
+    assert tlc(d2, 2.0, 3)  # the rows hold chains
+
+
 def test_profiling_counts_and_syncs_on_the_cpu():
     timer = StageTimer()
     for _ in range(3):

@@ -67,6 +67,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.utils.map_io",
         "tpu_slam_torch.cli", "tpu_slam_torch.__main__",
         "tpu_slam_torch.data.rosbag", "tpu_slam_torch.native",
+        "tpu_slam_torch.parallel.mesh", "tpu_slam_torch.parallel.multihost",
+        "tpu_slam_torch.parallel.loop_search",
+        "tpu_slam_torch.parallel.sharded_map",
+        "tpu_slam_torch.solver.distributed",
     }
     assert expected <= set(out["mods"])
 
@@ -92,6 +96,17 @@ def test_entry_points_default_to_the_card():
                occupancy_from_scans):
         default = inspect.signature(fn).parameters["device"].default
         assert default == _dispatch.DEFAULT_DEVICE, fn.__name__
+    # the mesh: ranks on the card, joined by NCCL, unless told otherwise
+    from tpu_slam_torch.parallel import mesh, multihost
+
+    for fn in (mesh.make_mesh, multihost.global_mesh):
+        assert inspect.signature(fn).parameters["device"].default == \
+            _dispatch.DEFAULT_DEVICE, fn.__name__
+        assert inspect.signature(fn).parameters["backend"].default is None
+    assert mesh.default_backend(_dispatch.DEFAULT_DEVICE) == "nccl"
+    assert mesh.default_backend("cpu") == "gloo"
+    assert inspect.signature(multihost.initialize).parameters[
+        "backend"].default == "nccl"
     # the command line: the card unless --cpu
     from tpu_slam_torch import cli
 

@@ -224,12 +224,21 @@ def test_device_scan_store_grows_and_keeps_rows():
 
 
 def test_unported_surfaces_raise():
+    """The mesh surfaces are ported: over a mesh of one rank the solver is
+    edge-sharded and the keyframe ring-pass gives the host's distances
+    (test_torch_mesh_models.py runs two ranks against the reference)."""
+    from tpu_slam_torch.parallel.mesh import make_mesh
+
     cfg = port_config(small_karto_cfg())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        KartoSLAM(cfg, device="cpu", mesh=object())
+    mesh = make_mesh(device="cpu")
+    slam = KartoSLAM(cfg, device="cpu", mesh=mesh)
+    assert slam.solver.mesh is mesh
+    refs = np.random.default_rng(0).uniform(-8, 8, (37, 2))
+    d2 = slam._ring_distances(refs[5], refs)
+    assert d2.shape == (37,) and d2.dtype == np.float64
+    np.testing.assert_allclose(d2, np.sum((refs - refs[5]) ** 2, -1),
+                               rtol=1e-5, atol=1e-4)
     slam = KartoSLAM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        slam._ring_distances(np.zeros(2), np.zeros((3, 2)))
     # the offline missions' multi-query anchor matcher is ported now
     assert callable(slam.loop_matcher._full_anchor_store(1, 16, (512, 179),
                                                          True, True))

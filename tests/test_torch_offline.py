@@ -99,16 +99,20 @@ def test_pcm_and_thinning_match_reference():
     assert [(e.i, e.j) for e in thin] == sorted((e.i, e.j) for e in thin)
 
 
-def test_unported_stages_raise():
-    """The mesh form is the one stage still to port (the drift-control
-    stages run; test_torch_outdoor.py holds them against the
-    reference)."""
-    cfg, scans, _seq, odom = _corridor_mission()
-    cfg = _port_cfg(cfg)
-    port = _port_scans(scans)
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, item 6: multi-device"):
-        toff.offline_slam(port, cfg, odom=odom, mesh=object())
+def test_unported_stages_raise(missions):
+    """The mesh form is ported: on a mesh of one rank (the sharded packed
+    matcher for every batch, the chain integrated and the loop gates
+    evaluated on the host, the edge-sharded LM) the mission gives the
+    single-device one to the reference's mesh bars
+    (test_torch_mesh_models.py holds two ranks against the reference)."""
+    from tpu_slam_torch.parallel.mesh import make_mesh
+
+    cfg, scans, _seq, odom, _ref, out = missions
+    got = toff.offline_slam(_port_scans(scans), _port_cfg(cfg), odom=odom,
+                            mesh=make_mesh(device="cpu"))
+    np.testing.assert_allclose(got.chain_poses, out.chain_poses, atol=1e-5)
+    assert len(got.loops) == len(out.loops) > 0
+    np.testing.assert_allclose(got.poses, out.poses, atol=5e-4)
 
 
 @pytest.fixture(scope="module")

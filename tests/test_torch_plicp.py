@@ -282,12 +282,43 @@ def test_factories_run_the_match_they_are_given(store):
 
 
 def test_sharded_factories_raise():
+    """The sharded factories are ported: over a mesh of one rank they give
+    the unsharded matchers' results bit for bit and the reference's
+    sharded matcher's within 1e-5 (test_torch_mesh.py holds two ranks);
+    a batch that does not tile the mesh raises."""
+    from tpu_slam.config import default_config as jdefault_config
+    from tpu_slam.parallel.mesh import make_mesh as jmake_mesh
+    from tpu_slam.parallel.mesh import shard_batch
     from tpu_slam_torch.config import default_config
+    from tpu_slam_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError):
-        tds.make_packed_indexed_matcher(default_config(), mesh=object())
-    with pytest.raises(NotImplementedError):
-        tds.make_batched_matcher(default_config(), mesh=object())
+    src, sv, tgt, tv = _pairs(2, delta=(0.06, -0.02, 0.04))
+    g = np.zeros((2, 3), np.float32)
+    cfg, mesh = default_config(), make_mesh(device="cpu")
+    args = _t(src, sv, tgt, tv, g)
+    one = tds.make_batched_matcher(cfg)(*args)
+    got = tds.make_batched_matcher(cfg, mesh)(*args)
+    for a, b in zip(got, one):
+        assert torch.equal(a, b)
+    store, valid = np.concatenate([src, tgt]), np.concatenate([sv, tv])
+    idx = _t(np.array([0, 1]), np.array([2, 3]), g)
+    packed = tds.make_packed_indexed_matcher(cfg, mesh)(
+        torch.as_tensor(store), torch.as_tensor(valid), torch.zeros(1, 2),
+        *idx)
+    assert torch.equal(packed, tds.make_packed_indexed_matcher(cfg)(
+        torch.as_tensor(store), torch.as_tensor(valid), torch.zeros(1, 2),
+        *idx))
+    assert torch.equal(packed[:, :3], one.pose)
+    jm = jmake_mesh(1)
+    ref = jds.make_batched_matcher(jdefault_config(), jm)(
+        *(shard_batch(jm, jnp.asarray(a)) for a in (src, sv, tgt, tv, g)))
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(ref.pose),
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="tile"):
+        import dataclasses
+
+        tds.make_batched_matcher(cfg, dataclasses.replace(mesh, size=3))(
+            *args)
 
 
 def test_batched_matcher_recovers_motion():

@@ -160,10 +160,24 @@ def test_degenerate_covariance_is_regularized():
 
 
 def test_unported_routes_raise():
+    """The mesh route is ported: on a mesh of one rank the edge-sharded LM
+    (dense and CG) gives the single-device solve to the reference's mesh
+    bars; the device f64 Schur solve and Schur still raise."""
+    from tpu_slam_torch.parallel.mesh import make_mesh
+
     init, edges, _gt = _ring(n=80, stride=1)
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, item 6: multi-device"):
-        PoseGraphSolver(SolverConfig(), mesh=object())
+    for kw in (dict(), dict(use_dense_below=32)):
+        cfg = SolverConfig(**kw)
+        s = PoseGraphSolver(cfg, mesh=make_mesh(device="cpu"))
+        s.add_nodes(range(len(init)), init)
+        s.add_constraints([e[0] for e in edges], [e[1] for e in edges],
+                          np.asarray([e[2] for e in edges]),
+                          informations=np.asarray([e[3] for e in edges]))
+        stats = s.compute()
+        ref_stats, ref = _port_solve(cfg, init, edges)
+        np.testing.assert_allclose(s.get_poses(), ref, atol=5e-4)
+        assert stats.final_cost == pytest.approx(ref_stats.final_cost,
+                                                 rel=1e-2, abs=1e-6)
     # at f64_schur_above nodes the host f64 arm runs; without it the
     # device f64 Schur solve, not ported
     with pytest.raises(NotImplementedError,

@@ -44,6 +44,7 @@ from tpu_slam_torch.ops.correlative import (
     MatchResult,
     to_host,
 )
+from tpu_slam_torch.parallel.loop_search import make_ring_loop_search
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
 from tpu_slam_torch.utils.events import EventBus
 from tpu_slam_torch.utils.profiling import StageTimer
@@ -208,14 +209,17 @@ def _np_inv(a):
 class KartoSLAM:
     def __init__(self, cfg: SLAMConfig, laser: LaserRig | None = None,
                  device=DEFAULT_DEVICE, mesh=None):
-        """Matching and solving run on ``device``. ``mesh`` (the reference's
-        edge-sharded solve and keyframe ring-pass) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "KartoSLAM over a mesh is not ported yet (ROADMAP queue 1, "
-                "item 11: multi-device layer)")
+        """Matching and solving run on ``device``. With a ``mesh``
+        (``parallel/mesh.Mesh``) they run on the mesh's device, the back
+        end's LM with its edges sharded over the ranks
+        (``PoseGraphSolver(mesh=mesh)``) and the loop-candidate sweep
+        through the keyframe ring-pass (``parallel/loop_search``). Every
+        rank runs the whole front end on the same scans, as every process
+        does in the reference."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self._ring_search = None  # built at the first sweep (mesh only)
+        self.device = torch.device(device if mesh is None else mesh.device)
         # laser device registration: offset pose + upside-down handling
         # (SlamKarto::getLaser). API-boundary poses are BASE poses when a
         # rig with an offset is registered; internal poses stay sensor poses.
@@ -257,7 +261,8 @@ class KartoSLAM:
             use_response_expansion=c.use_response_expansion,
             device=self.device,
         )
-        self.solver = PoseGraphSolver(cfg.solver, device=self.device)
+        self.solver = PoseGraphSolver(cfg.solver, device=self.device,
+                                      mesh=mesh)
         self._pending = None  # in-flight async back-end solve
         self._flushed_edges = -1  # edge count at the last flush-time solve
         self.scans: list[ScanRecord] = []
@@ -795,15 +800,41 @@ class KartoSLAM:
                 sid, lp.loop_search_maximum_distance, refs
             )
         )
-        d2 = np.sum((refs - refs[sid]) ** 2, axis=-1)
+        if self.mesh is not None:
+            d2 = self._ring_distances(refs[sid], refs)
+            # the ring pass computes d2 in float32 where the single-device
+            # sweep is float64: keyframes within its rounding of the range
+            # boundary are recomputed exactly here, so that both accept
+            # the same candidates
+            t2 = lp.loop_search_maximum_distance**2
+            border = np.abs(d2 - t2) < 1e-3
+            if border.any():
+                d2[border] = np.sum((refs[border] - refs[sid]) ** 2, axis=-1)
+        else:
+            d2 = np.sum((refs - refs[sid]) ** 2, axis=-1)
         in_range = d2 < lp.loop_search_maximum_distance**2 + 1e-6
         return near_linked, in_range
 
     def _ring_distances(self, query: np.ndarray, refs: np.ndarray):
-        """The mesh ring-pass of the reference's loop-candidate sweep."""
-        raise NotImplementedError(
-            "the keyframe ring-pass over a mesh is not ported yet (ROADMAP "
-            "queue 1, item 11: multi-device layer)")
+        """Query↔keyframe squared distances through the mesh ring-pass
+        (``parallel/loop_search.make_ring_loop_search``): the keyframes
+        padded with far rows (1e9) to a power-of-two block a rank, every
+        rank asking the same query; returns the rank's own query row,
+        float64."""
+        if self._ring_search is None:
+            self._ring_search = make_ring_loop_search(self.mesh)
+        D = self.mesh.size
+        n = refs.shape[0]
+        blk = 1
+        while blk * D < max(n, 16):
+            blk *= 2
+        kf = np.full((blk * D, 2), 1e9, np.float32)
+        kf[:n] = refs
+        q = np.broadcast_to(np.asarray(query, np.float32), (D, 2)).copy()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        d2 = self._ring_search(torch.as_tensor(q, **f32),
+                               torch.as_tensor(kf, **f32))
+        return d2[self.mesh.rank, :n].double().cpu().numpy()
 
     def _correct_poses(self):
         """CorrectPoses (Mapper.cpp:1397-1414): solve + write back.

@@ -24,8 +24,16 @@ calls — port of ``tpu_slam/models/offline.py::offline_slam``.
 
 The device is the device of the scans' tensors. ``corrected_pts`` (for
 instance ``undistort_mission``'s output) replaces the polar→Cartesian
-conversion of the scans. Not ported yet, and raising
-``NotImplementedError``: the ``mesh`` form.
+conversion of the scans.
+
+With a mesh (``parallel/mesh.Mesh``; every rank calls ``offline_slam``
+on the same scans) the device is the mesh's, and every PL-ICP batch,
+chain, skip and loop, goes through the sharded packed matcher: each rank
+matches its block of the pairs and all get the whole result. As in the
+reference's mesh branch, the chain is integrated on the host and the loop
+seeds' gates are evaluated on the host in float64 on the gathered rows;
+the back end is ``PoseGraphSolver(mesh=mesh)``. The anchor sweep runs
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_slam_torch import geometry as geo
 from tpu_slam_torch import geometry_np as gnp
 from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.data.scan import Scan
@@ -322,6 +331,32 @@ def undistort_mission(
     return pts
 
 
+def _select_seeds_host(packed, C: int, S: int, rel_pred, n_valid, ocfg,
+                       err_gate: float):
+    """The loop selector's gates on the host in float64, on the (C·S, 14)
+    packed rows of C candidates × S seeds (the reference's mesh branch,
+    ``tpu_slam/models/offline.py:567-600``): a seed is eligible when its
+    inlier fraction clears ``min_inlier_frac`` and its pose stays in the
+    seeded basin; the best eligible seed must clear ``err_gate``. Returns
+    (pose, error, covariance, inlier fraction, accept) of each
+    candidate's best seed."""
+    err = packed[:, 3].reshape(C, S)
+    pose = packed[:, :3].reshape(C, S, 3)
+    cov = packed[:, 5:14].reshape(C, S, 3, 3)
+    frac = packed[:, 4].reshape(C, S) / np.maximum(
+        np.asarray(n_valid, np.float64)[:, None], 1.0)
+    dev = pose - np.asarray(rel_pred, np.float64)[:, None, :]
+    dev_th = np.arctan2(np.sin(dev[..., 2]), np.cos(dev[..., 2]))
+    in_basin = ((np.linalg.norm(dev[..., :2], axis=-1) <= ocfg.seed_xy)
+                & (np.abs(dev_th) <= ocfg.seed_theta))
+    err = np.where((frac >= ocfg.min_inlier_frac) & in_basin, err, np.inf)
+    best = np.argmin(err, axis=1)
+    rows = np.arange(C)
+    b_err = err[rows, best]
+    return (pose[rows, best], b_err, cov[rows, best], frac[rows, best],
+            np.isfinite(b_err) & (b_err <= err_gate))
+
+
 def offline_slam(
     scans: Scan,
     cfg: SLAMConfig,
@@ -334,15 +369,11 @@ def offline_slam(
 
     corrected_pts: optional (T, N, 2) laser-frame points to match instead
     of the scans' polar→Cartesian conversion, e.g. ``undistort_mission``'s
-    output."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "offline_slam over a mesh is not ported yet (ROADMAP queue 1, "
-            "item 6: multi-device layer)"
-        )
+    output. With a ``mesh``, the edge-sharded and batch-sharded form on
+    the mesh's device."""
     timer = timer if timer is not None else StageTimer()
     ocfg = cfg.offline
-    dev = scans.device
+    dev = scans.device if mesh is None else mesh.device
     ranges = scans.ranges.cpu().numpy()
     valid = scans.valid.cpu().numpy()
     angles = scans.angles.cpu().numpy()
@@ -378,14 +409,16 @@ def offline_slam(
     def up(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    pmatch = make_packed_indexed_matcher(cfg)
+    pmatch = make_packed_indexed_matcher(cfg, mesh)
+    D = 1 if mesh is None else mesh.size
 
     def pmatch_np(src_idx, tgt_idx, guesses):
         """The packed indexed match of (B,) index batches padded to their
-        bucket (pads match scan 0 against itself and are dropped): the
-        (B, 14) packed result on the host, in one read."""
+        bucket, a multiple of the mesh's ranks (pads match scan 0 against
+        itself and are dropped): the (B, 14) packed result on the host, in
+        one read."""
         B = len(src_idx)
-        Bp = _bucket(B)
+        Bp = -(-_bucket(B) // D) * D
         si = np.zeros(Bp, np.int64)
         ti = np.zeros(Bp, np.int64)
         g = np.zeros((Bp, 3), np.float32)
@@ -409,22 +442,31 @@ def offline_slam(
     )
     Bc = T - 1
     pose0 = np.zeros(3) if odom is None else np.asarray(odom[0], np.float64)
-    cmatch = make_chain_matcher(cfg)
-    Bp = _bucket(Bc)
-    si = np.zeros(Bp, np.int64)
-    ti = np.zeros(Bp, np.int64)
-    g = np.zeros((Bp, 3), np.float32)
-    si[:Bc] = np.arange(1, T)
-    ti[:Bc] = np.arange(0, T - 1)
-    g[:Bc] = guesses
-    with timer.stage("chain_match"):
-        out = cmatch(
-            d_store, d_storev, d_dirs, up(si, torch.int64),
-            up(ti, torch.int64), up(g, torch.float32),
-            up(pose0, torch.float32),
-        ).double().cpu().numpy()
-        packed = out[:Bc]
-        chain_poses = out[Bp:Bp + T, :3]
+    if mesh is None:
+        cmatch = make_chain_matcher(cfg)
+        Bp = _bucket(Bc)
+        si = np.zeros(Bp, np.int64)
+        ti = np.zeros(Bp, np.int64)
+        g = np.zeros((Bp, 3), np.float32)
+        si[:Bc] = np.arange(1, T)
+        ti[:Bc] = np.arange(0, T - 1)
+        g[:Bc] = guesses
+        with timer.stage("chain_match"):
+            out = cmatch(
+                d_store, d_storev, d_dirs, up(si, torch.int64),
+                up(ti, torch.int64), up(g, torch.float32),
+                up(pose0, torch.float32),
+            ).double().cpu().numpy()
+            packed = out[:Bc]
+            chain_poses = out[Bp:Bp + T, :3]
+    else:
+        with timer.stage("chain_match"):
+            packed = pmatch_np(np.arange(1, T), np.arange(0, T - 1), guesses)
+        with timer.stage("integrate"):  # on the host
+            chain_poses = geo.compose_chain(
+                torch.as_tensor(pose0, dtype=torch.float32),
+                torch.as_tensor(packed[:, :3], dtype=torch.float32),
+            ).double().numpy()
     chain_rels = packed[:, :3]
     chain_covs_raw = packed[:, 5:14].reshape(Bc, 3, 3)
     chain_covs = chain_covs_raw + floor
@@ -483,7 +525,7 @@ def offline_slam(
         # past the chain go in the reference's order, skip, anchor, loop,
         # which is the float32 sum order of the solve
         loop_edges = _thin_loops(loop_edges, ocfg)
-        s = PoseGraphSolver(cfg.solver, device=dev)
+        s = PoseGraphSolver(cfg.solver, device=dev, mesh=mesh)
         s.add_nodes(range(T), init_poses)
         s.add_constraints(
             np.arange(T - 1), np.arange(1, T), chain_rels,
@@ -509,9 +551,10 @@ def offline_slam(
 
     seeds = _seed_lattice(ocfg)
     S = seeds.shape[0]
-    lsel = make_loop_selector(cfg, S)
-    gates = up([ocfg.min_inlier_frac, ocfg.seed_xy, ocfg.seed_theta,
-                err_gate], torch.float32)
+    if mesh is None:
+        lsel = make_loop_selector(cfg, S)
+        gates = up([ocfg.min_inlier_frac, ocfg.seed_xy, ocfg.seed_theta,
+                    err_gate], torch.float32)
     poses = chain_poses
     solver = _build_solver([], chain_poses)
     candidates_all: list[LoopEdge] = []  # gate-passing edges (pre-PCM)
@@ -542,30 +585,40 @@ def offline_slam(
         # multi-start match + best-seed selection + gates, one call over
         # the (C·S) batch gathered from the store by row index
         with timer.stage("loop_match"):
-            Cp = _bucket(C, lo=16)
-            cip = np.zeros(Cp, np.int64)
-            cjp = np.zeros(Cp, np.int64)
-            cip[:C] = ci
-            cjp[:C] = cj
-            gp = np.zeros((Cp, S, 3), np.float32)
-            gp[:C] = rel_pred[:, None, :] + seeds[None, :, :]
-            rp = np.zeros((Cp, 3), np.float32)
-            rp[:C] = rel_pred
-            sel = lsel(
-                d_store, d_storev, d_dirs, up(np.repeat(cjp, S), torch.int64),
-                up(np.repeat(cip, S), torch.int64),
-                up(gp.reshape(Cp * S, 3), torch.float32),
-                up(rp, torch.float32), gates,
-            ).double().cpu().numpy()[:C]
-        accept = sel[:, 15] > 0.5
+            if mesh is not None:
+                b_pose, b_err, b_cov, b_frac, accept = _select_seeds_host(
+                    pmatch_np(np.repeat(cj, S), np.repeat(ci, S),
+                              (rel_pred[:, None, :] + seeds[None, :, :])
+                              .reshape(C * S, 3)),
+                    C, S, rel_pred, valid[cj].sum(axis=-1), ocfg, err_gate)
+            else:
+                Cp = _bucket(C, lo=16)
+                cip = np.zeros(Cp, np.int64)
+                cjp = np.zeros(Cp, np.int64)
+                cip[:C] = ci
+                cjp[:C] = cj
+                gp = np.zeros((Cp, S, 3), np.float32)
+                gp[:C] = rel_pred[:, None, :] + seeds[None, :, :]
+                rp = np.zeros((Cp, 3), np.float32)
+                rp[:C] = rel_pred
+                sel = lsel(
+                    d_store, d_storev, d_dirs,
+                    up(np.repeat(cjp, S), torch.int64),
+                    up(np.repeat(cip, S), torch.int64),
+                    up(gp.reshape(Cp * S, 3), torch.float32),
+                    up(rp, torch.float32), gates,
+                ).double().cpu().numpy()[:C]
+                b_pose, b_err = sel[:, :3], sel[:, 3]
+                b_cov, b_frac = sel[:, 5:14].reshape(C, 3, 3), sel[:, 14]
+                accept = sel[:, 15] > 0.5
         for k in np.nonzero(accept)[0]:
             candidates_all.append(
                 LoopEdge(
                     i=int(ci[k]), j=int(cj[k]),
-                    mean=sel[k, :3],
-                    covariance=sel[k, 5:14].reshape(3, 3) + floor,
-                    error=float(sel[k, 3]),
-                    inlier_frac=float(sel[k, 14]),
+                    mean=b_pose[k],
+                    covariance=b_cov[k] + floor,
+                    error=float(b_err[k]),
+                    inlier_frac=float(b_frac[k]),
                     round=rnd,
                 )
             )

@@ -1,11 +1,16 @@
-"""Batched PL-ICP matcher factories — port of the single-device factories of
-``tpu_slam/parallel/distributed_step.py``.
+"""Batched PL-ICP matcher factories and the distributed SLAM step — port
+of ``tpu_slam/parallel/distributed_step.py``.
 
 Every factory returns a plain callable over tensors. The match runs the
 PL-ICP kernel (point-to-line) or the NN kernel in each round of
 ``plicp_match`` (point-to-point) when the tensors are on ``cuda``, and
-the plain versions on ``cpu`` (``_match_fn``). The mesh (sharded) forms
-are not ported.
+the plain versions on ``cpu`` (``_match_fn``).
+
+With a mesh (``parallel/mesh.Mesh``) the pair batch is sharded: every
+rank passes the same global arguments, matches its block of the pairs
+(its own kernel launch on ``cuda``) and gets the whole batch's result,
+gathered in one collective. The scan store is replicated. The batch must
+tile the mesh; the callers pad it.
 """
 
 from __future__ import annotations
@@ -17,9 +22,11 @@ from tpu_slam_torch.config import SLAMConfig
 from tpu_slam_torch.ops.cuda.plicp_fused import plicp_match_fused
 from tpu_slam_torch.ops.matching import nearest_neighbor_auto
 from tpu_slam_torch.ops.plicp import PLICPResult, plicp_match
-
-_MESH_MSG = ("the sharded matcher is not ported yet "
-             "(ROADMAP queue 1, item 11: multi-device layer)")
+from tpu_slam_torch.parallel.mesh import Mesh, all_gather_rows, block
+from tpu_slam_torch.solver.distributed import (
+    EdgeShard, normal_equations, slot_table,
+)
+from tpu_slam_torch.solver.lm import dense_solve
 
 
 def _match_fn(cfg: SLAMConfig):
@@ -61,6 +68,23 @@ def _gather_scan(store: torch.Tensor, idx: torch.Tensor,
     return g
 
 
+def _gathered(r: PLICPResult, mesh: Mesh) -> PLICPResult:
+    """The whole batch's result from each rank's block, in ONE gather:
+    [pose(3), error, num_inliers, cov.flat(9), converged] rows."""
+    B = r.pose.shape[0]
+    rows = all_gather_rows(torch.cat(
+        [_pack_result(r), r.converged.reshape(B, 1).to(torch.float32)],
+        dim=-1), mesh)
+    n = rows.shape[0]
+    return PLICPResult(
+        pose=rows[:, 0:3].to(r.pose.dtype),
+        error=rows[:, 3].to(r.error.dtype),
+        num_inliers=rows[:, 4].to(r.num_inliers.dtype),
+        covariance=rows[:, 5:14].reshape(n, 3, 3).to(r.covariance.dtype),
+        converged=rows[:, 14] > 0.5,
+    )
+
+
 def _indexed(base, store, store_valid, dirs, src_idx, tgt_idx, guesses):
     return base(
         _gather_scan(store, src_idx, dirs), store_valid[src_idx],
@@ -69,26 +93,87 @@ def _indexed(base, store, store_valid, dirs, src_idx, tgt_idx, guesses):
     )
 
 
-def make_batched_matcher(cfg: SLAMConfig, mesh=None):
-    """Batched PL-ICP matcher over (B, N, 2) pair batches."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
-    return _match_fn(cfg)
+def make_batched_matcher(cfg: SLAMConfig, mesh: Mesh | None = None):
+    """Batched PL-ICP matcher over (B, N, 2) pair batches:
+    f(src_pts, src_valid, tgt_pts, tgt_valid, guesses) → PLICPResult."""
+    base = _match_fn(cfg)
+    if mesh is None:
+        return base
+
+    def f(sp, sv, tp, tv, g):
+        return _gathered(base(*(block(t, mesh) for t in (sp, sv, tp, tv, g))),
+                         mesh)
+
+    return f
 
 
-def make_packed_indexed_matcher(cfg: SLAMConfig, mesh=None):
+def make_indexed_matcher(cfg: SLAMConfig, mesh: Mesh | None = None):
+    """Batched PL-ICP over a scan table: pairs are (src_idx, tgt_idx) rows
+    into one (U, N, 2) points store, gathered on the device, so that each
+    scan crosses to the device once however many pairs name it:
+    f(store_pts, store_valid, src_idx, tgt_idx, guesses) → PLICPResult."""
+    base = _match_fn(cfg)
+
+    def f(store_pts, store_valid, src_idx, tgt_idx, guesses):
+        if mesh is not None:
+            src_idx, tgt_idx, guesses = (block(t, mesh) for t in
+                                         (src_idx, tgt_idx, guesses))
+        r = base(store_pts[src_idx], store_valid[src_idx],
+                 store_pts[tgt_idx], store_valid[tgt_idx], guesses)
+        return r if mesh is None else _gathered(r, mesh)
+
+    return f
+
+
+def make_packed_indexed_matcher(cfg: SLAMConfig, mesh: Mesh | None = None):
     """Matcher over a scan store by row index; returns ONE (B, 14) float32
     tensor ``[pose(3), error(1), num_inliers(1), covariance.flat(9)]``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
     base = _match_fn(cfg)
 
     def f(store, store_valid, dirs, src_idx, tgt_idx, guesses):
-        return _pack_result(
+        if mesh is not None:
+            src_idx, tgt_idx, guesses = (block(t, mesh) for t in
+                                         (src_idx, tgt_idx, guesses))
+        out = _pack_result(
             _indexed(base, store, store_valid, dirs, src_idx, tgt_idx, guesses)
         )
+        return out if mesh is None else all_gather_rows(out, mesh)
 
     return f
+
+
+def make_sharded_training_step(mesh: Mesh, cfg: SLAMConfig):
+    """The distributed SLAM step:
+
+    step(src_pts (B, N, 2), src_valid, tgt_pts, tgt_valid, guesses (B, 3),
+         poses (B+1, 3), lam) → (new_poses (B+1, 3), match_errors (B,))
+
+    The B pairs are matched data-parallel (each rank its block); their
+    relative poses become chain edges i → i+1 (information I·inliers),
+    sharded the same way for the normal equations, whose edge terms one
+    gather brings to every rank (``solver/distributed``); the dense solve
+    runs replicated. B must tile the mesh."""
+    base = _match_fn(cfg)
+
+    def step(src_pts, src_valid, tgt_pts, tgt_valid, guesses, poses, lam):
+        B = src_pts.shape[0]
+        M = B + 1
+        dev, dt = poses.device, poses.dtype
+        res = base(*(block(t, mesh) for t in (src_pts, src_valid, tgt_pts,
+                                               tgt_valid, guesses)))
+        gi = torch.arange(B, device=dev)
+        w = torch.clamp(res.num_inliers.to(dt), min=1.0)
+        infos = torch.eye(3, dtype=dt, device=dev)[None] * w[:, None, None]
+        sh = EdgeShard(block(gi, mesh), block(gi, mesh) + 1, res.pose.to(dt),
+                       infos, gi, gi + 1, slot_table(gi, gi + 1, M))
+        Hd, Hij, b = normal_equations(mesh, poses, sh, dense=True)
+        free = torch.arange(M, device=dev) > 0
+        new = poses + dense_solve(Hd, Hij, gi, gi + 1, b, lam, free)
+        th = torch.atan2(torch.sin(new[:, 2]), torch.cos(new[:, 2]))
+        new = torch.cat([new[:, :2], th[:, None]], dim=-1)
+        return new, all_gather_rows(res.error, mesh)
+
+    return step
 
 
 def make_chain_matcher(cfg: SLAMConfig):

@@ -1,6 +1,7 @@
 """What the plain solvers share: the edge residuals, Jacobians, cost and
-block normal equations of the pose graph, the doSPA Levenberg-Marquardt
-schedule (spa2d.cpp:425-609), and the packed result they return.
+block normal equations of the pose graph, the dense damped step, the doSPA
+Levenberg-Marquardt schedule (spa2d.cpp:425-609), and the packed result
+they return.
 
 Residual model (SPA2d's Con2dP2):
     r_xy = R(θi)ᵀ (t_j − t_i) − ẑ_xy
@@ -86,6 +87,59 @@ def normal_equations(poses, ei, ej, means, infos, n_nodes):
     b.index_add_(0, ei, (JiW @ r[..., None])[..., 0])
     b.index_add_(0, ej, (JjW @ r[..., None])[..., 0])
     return Hd, JiW @ Jj, b
+
+
+def assemble_dense(Hd, Hij, ei, ej):
+    """Block form → the full (M, 3, M, 3) system, no damping or gauge: the
+    form the mesh's dense step sums before the solve."""
+    M = Hd.shape[0]
+    dev = Hd.device
+    H = torch.zeros((M, 3, M, 3), dtype=Hd.dtype, device=dev)
+    nodes = torch.arange(M, device=dev)
+    H[nodes, :, nodes, :] = Hd
+    u = torch.arange(3, device=dev)
+    i3, j3 = ei[:, None, None], ej[:, None, None]
+    H.index_put_((i3, u[:, None], j3, u), Hij, accumulate=True)
+    H.index_put_((j3, u[:, None], i3, u), Hij.mT, accumulate=True)
+    return H
+
+
+def damped(Hd, lam):
+    """Diagonal blocks with a 1e-12 jitter, their diagonal × (1+λ)
+    (spa2d setupSys)."""
+    eye3 = torch.eye(3, dtype=Hd.dtype, device=Hd.device)
+    return (Hd + 1e-12 * eye3) * torch.where(eye3 > 0, 1.0 + float(lam), 1.0)
+
+
+def finalize_dense_solve(H, b, lam, free_mask):
+    """Damp the assembled system's block diagonal, gauge-fix the non-free
+    nodes (identity rows) and solve H δ = −b by Cholesky; (M, 3). A failed
+    factorization gives a NaN step, which the LM rejects."""
+    M = free_mask.shape[0]
+    dt, dev = H.dtype, H.device
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    nodes = torch.arange(M, device=dev)
+    H = H.clone()
+    H[nodes, :, nodes, :] = damped(H[nodes, :, nodes, :], lam)
+    fm = free_mask.to(dt)
+    H = H * fm[:, None, None, None] * fm[None, None, :, None]
+    H[nodes, :, nodes, :] += (1.0 - fm)[:, None, None] * eye3
+    L, info = torch.linalg.cholesky_ex(H.reshape(3 * M, 3 * M))
+    delta = torch.cholesky_solve(-(b * fm[:, None]).reshape(-1, 1), L)
+    delta = torch.where(info == 0, delta, torch.full_like(delta, float("nan")))
+    return delta.reshape(M, 3)
+
+
+def dense_solve(Hd, Hij, ei, ej, b, lam, free_mask):
+    """The dense LM step: assemble the (3M, 3M) system and solve it."""
+    return finalize_dense_solve(assemble_dense(Hd, Hij, ei, ej), b, lam,
+                                free_mask)
+
+
+def wrap_headings(poses):
+    """Poses with their headings wrapped by atan2(sin, cos)."""
+    return torch.cat([poses[:, :2], torch.atan2(torch.sin(poses[:, 2:]),
+                                                torch.cos(poses[:, 2:]))], 1)
 
 
 def lm_loop(p0, cost_of, step_of, wrap, lam0, iters, sq_min_delta):

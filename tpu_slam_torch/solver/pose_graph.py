@@ -26,6 +26,11 @@ Routing (``_route``) follows the reference's on its TPU, in its order:
   * any other graph → the PCG LM, with ``cg_restarts`` runs of CG a step
     (the reference's TPU sends ``cg_restarts > 1`` to its XLA LM program,
     the same block-Jacobi PCG LM as its fused kernel).
+With a mesh every graph takes the edge-sharded LM of
+``solver/distributed.mesh_lm``: dense up to ``use_dense_below`` nodes
+("mesh_dense"), CG above ("mesh_cg", with ``cg_restarts`` and
+``cg_tolerance``). As in the reference, a mesh skips the direct CR route,
+the host f64 arm, the fused kernel and Schur.
 The device routes launch their CUDA kernel on ``cuda`` and run its plain
 version on ``cpu``; the host arm runs on the host on either device.
 Routes not ported raise ``NotImplementedError`` naming the ROADMAP item
@@ -45,13 +50,16 @@ from tpu_slam_torch.config import SolverConfig
 from tpu_slam_torch.solver import banded
 from tpu_slam_torch.solver.cr_lm import K_MAX, fused_cr_lm
 from tpu_slam_torch.solver.cr_stream import streamed_cr_lm
+from tpu_slam_torch.solver.distributed import mesh_lm
 from tpu_slam_torch.solver.lm import (  # noqa: F401  (the reference's names)
+    dense_solve,
     edge_jacobians,
     edge_residuals,
     graph_cost,
     lm_loop,
     normal_equations,
     pack,
+    wrap_headings,
 )
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve
 
@@ -62,32 +70,6 @@ MAX_ONEHOT_ELEMS = 3_200_000
 # graph topology (banded.spec_cache_key) → RCM band spec, or None where the
 # graph does not band; the reference keeps the same cache (_CR_SPEC_CACHE)
 _SPEC_CACHE: dict = {}
-
-
-def _dense_delta(Hd, Hij, ei, ej, b, lam, free):
-    """Assemble the (3M, 3M) system, damp the block diagonal (jitter, then
-    ×(1+λ) on its diagonal), gauge-fix the non-free nodes and solve
-    Hδ = −b by Cholesky. A failed factorization gives a NaN step, which
-    the LM loop rejects."""
-    M = Hd.shape[0]
-    dt, dev = Hd.dtype, Hd.device
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    Hdd = Hd + 1e-12 * eye3
-    Hdd = Hdd * torch.where(eye3 > 0, 1.0 + lam, 1.0)
-    H = torch.zeros((M, 3, M, 3), dtype=dt, device=dev)
-    nodes = torch.arange(M, device=dev)
-    H[nodes, :, nodes, :] = Hdd
-    u = torch.arange(3, device=dev)
-    i3, j3 = ei[:, None, None], ej[:, None, None]
-    H.index_put_((i3, u[:, None], j3, u), Hij, accumulate=True)
-    H.index_put_((j3, u[:, None], i3, u), Hij.mT, accumulate=True)
-    fm = free.to(dt)
-    H = H * fm[:, None, None, None] * fm[None, None, :, None]
-    H[nodes, :, nodes, :] += (1.0 - fm)[:, None, None] * eye3
-    L, info = torch.linalg.cholesky_ex(H.reshape(3 * M, 3 * M))
-    delta = torch.cholesky_solve(-(b * fm[:, None]).reshape(-1, 1), L)
-    delta = torch.where(info == 0, delta, torch.full_like(delta, float("nan")))
-    return delta.reshape(M, 3)
 
 
 def _sq_min_delta(convergence_delta: float) -> float:
@@ -104,15 +86,11 @@ def _dense_lm(p0, ei, ej, means, infos, free, lam0, iters, sq_min_delta):
 
     def step(p, lam):
         Hd, Hij, b = normal_equations(p, ei, ej, means, infos, M)
-        return _dense_delta(Hd, Hij, ei, ej, b, float(lam), free)
-
-    def wrap(cand):
-        return torch.cat([cand[:, :2], torch.atan2(torch.sin(cand[:, 2:]),
-                                                   torch.cos(cand[:, 2:]))], 1)
+        return dense_solve(Hd, Hij, ei, ej, b, lam, free)
 
     p, cost0, cost, good, it = lm_loop(
-        p0, lambda p: graph_cost(p, ei, ej, means, infos), step, wrap, lam0,
-        iters, sq_min_delta)
+        p0, lambda p: graph_cost(p, ei, ej, means, infos), step,
+        wrap_headings, lam0, iters, sq_min_delta)
     return pack(p.T, cost0, cost, good, it)
 
 
@@ -245,15 +223,20 @@ def _fused_shapes_fit(num_nodes: int, num_edges: int) -> bool:
 
 
 def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
-           band_spec=lambda: None) -> str:
+           band_spec=lambda: None, mesh=None) -> str:
     """The solve route of a graph of ``num_nodes`` nodes and ``num_edges``
     edges on ``device``: "dense", "pcg", "direct" or "host_f64", or the
-    name of an unported route ("f64_schur", "schur").
+    name of an unported route ("f64_schur", "schur"); with a mesh
+    "mesh_dense" or "mesh_cg" (the reference's ``use_dense``, its mesh
+    skipping every other route: ``tpu_slam/solver/pose_graph.py:939``,
+    ``:964``, ``:1008``, ``:1033``).
     ``band_spec()`` is called only for a graph above ``use_dense_below`` and
     says whether it bands (None: it does not). Small graphs follow the
     reference's TPU conditions for its fused kernel
     (``tpu_slam/solver/pose_graph.py:1008-1030``) on ``cuda``; larger ones
     its order (``:939-945``, ``:964-984``, then ``:1008-1038``)."""
+    if mesh is not None:
+        return "mesh_dense" if num_nodes <= cfg.use_dense_below else "mesh_cg"
     if num_nodes <= cfg.use_dense_below:
         kernel = (torch.device(device).type == "cuda"
                   and cfg.use_fused_kernel and cfg.cg_restarts <= 1
@@ -283,16 +266,17 @@ class PoseGraphSolver:
     doSPA(max_iterations) plus the corrections harvest. Poses and edges
     are kept on the host in float64; each device solve uploads them to
     ``device`` in float32, and the host f64 arm solves them where they
-    are."""
+    are.
+
+    With a ``mesh`` (``parallel/mesh.Mesh``) the solve runs on the mesh's
+    device with the edges sharded over its ranks. Every rank must hold the
+    same graph and call ``compute`` alike: each takes its block of the
+    edges, and every rank gets the whole result."""
 
     def __init__(self, cfg: SolverConfig, device=DEFAULT_DEVICE, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the graph-parallel LM over a mesh is not ported yet "
-                "(ROADMAP queue 1, item 6: multi-device layer)"
-            )
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
         self._poses: list[np.ndarray] = []
         self._edges: list[tuple[int, int, np.ndarray, np.ndarray]] = []
         self._ids: dict[int, int] = {}  # external id → dense index
@@ -376,7 +360,9 @@ class PoseGraphSolver:
         iterations is); ``harvest()`` fetches the result."""
         iters = max_iterations or self.cfg.max_iterations
         route = _route(self.num_nodes, self.num_edges, self.device,
-                       self.cfg, self._band_spec)
+                       self.cfg, self._band_spec, self.mesh)
+        if route in ("mesh_dense", "mesh_cg"):
+            return self._compute_mesh(iters, route == "mesh_dense")
         if route == "dense":
             return self._compute_dense(iters)
         if route == "pcg":
@@ -421,6 +407,25 @@ class PoseGraphSolver:
             _sq_min_delta(self.cfg.convergence_delta),
         )
         return PendingSolve(self, packed)
+
+    def _compute_mesh(self, iters: int, use_dense: bool) -> "PendingSolve":
+        """The edge-sharded LM: the edges padded (zero information) until
+        their blocks tile the mesh."""
+        cfg = self.cfg
+        poses, ei, ej, means, infos, free = self.device_graph()
+        E = ei.shape[0]
+        pad = -(-max(E, 1) // self.mesh.size) * self.mesh.size - E
+        mask = torch.arange(E + pad, device=self.device) < E
+        ei, ej = (torch.nn.functional.pad(t, (0, pad)) for t in (ei, ej))
+        means = torch.cat([means, means.new_zeros((pad, 3))])
+        infos = torch.cat([infos, infos.new_zeros((pad, 3, 3))])
+        out = mesh_lm(
+            self.mesh, poses, ei, ej, means, infos, mask, free,
+            cfg.initial_lambda, iters=iters, use_dense=use_dense,
+            cg_iters=cfg.cg_iterations, cg_tol=cfg.cg_tolerance,
+            cg_restarts=max(cfg.cg_restarts, 1),
+            sq_min_delta=_sq_min_delta(cfg.convergence_delta))
+        return PendingSolve(self, out)
 
     def _compute_host_f64(self, iters: int) -> "PendingSolve":
         """The host f64 arm: its result packed as a float64 (8, M) tensor on
@@ -510,7 +515,9 @@ class PendingSolve:
     poses in rows 0..2, node k at lane ``lanes[k]`` (lane k when None), and
     (cost0, cost, good, iters) in row 3; ``harvest`` fetches it in ONE
     device→host copy and writes the poses back, node 0 (the gauge)
-    excepted."""
+    excepted. A mesh solve has run to its end on the host's schedule when
+    it returns, so ``ready()`` is True on every rank alike (an event's
+    state could differ between ranks and part their control flow)."""
 
     def __init__(self, solver: PoseGraphSolver, packed: torch.Tensor,
                  lanes: np.ndarray | None = None):
@@ -520,7 +527,7 @@ class PendingSolve:
         self.n_nodes = solver.num_nodes  # the nodes in this solve
         self._stats: SolveStats | None = None
         self._event = None
-        if packed.is_cuda:
+        if packed.is_cuda and solver.mesh is None:
             self._event = torch.cuda.Event()
             self._event.record()
 

@@ -156,7 +156,8 @@ def load_karto(slam: "KartoSLAM", path: str) -> None:
 def save_hector(slam, path: str) -> None:
     """Snapshot a HectorSLAM instance (grids + pose), with the reference's
     keys: ``last_pose``, ``last_update`` (NaN before the first map
-    update) and ``grid{i}``, each level a flat (size_y·size_x,) float32."""
+    update) and ``grid{i}``, each level a flat (size_y·size_x,) float32.
+    A mapper over a mesh gathers its stripes: every rank must call it."""
     np.savez_compressed(
         path,
         last_pose=slam.last_pose.cpu().numpy(),
@@ -165,7 +166,8 @@ def save_hector(slam, path: str) -> None:
             if slam._last_map_update_pose is not None
             else np.full(3, np.nan)
         ),
-        **{f"grid{i}": g.cpu().numpy() for i, g in enumerate(slam.grids)},
+        **{f"grid{i}": g.cpu().numpy()
+           for i, g in enumerate(slam.map_grids())},
     )
 
 
@@ -176,10 +178,8 @@ def load_hector(slam, path: str) -> None:
 
     z = np.load(path)
     f32 = dict(dtype=torch.float32, device=slam.device)
-    slam.grids = [
-        torch.as_tensor(np.asarray(z[f"grid{i}"], np.float32), **f32)
-        for i in range(len(slam.grids))
-    ]
+    slam.load_grids([np.asarray(z[f"grid{i}"], np.float32)
+                     for i in range(len(slam.grids))])
     slam.last_pose = torch.as_tensor(
         np.asarray(z["last_pose"], np.float32), **f32)
     lu = z["last_update"]
