@@ -63,6 +63,20 @@ and nothing of the JAX package. Phases, each printing its own line(s):
   8. the mission's scans/s (median of 3 runs after the warm one);
   9. one mission under ``torch.profiler``: device busy time, idle share
      and each kernel's device time per launch;
+  9b. the Schur routes (``phase_schur``; plain PyTorch, no kernel), each
+     solve with the launch counters zeroed first (none may launch):
+     ``use_schur`` on the mission's loop-closed graph from its chain
+     (two runs bit-equal; the first 3 LM iterations within 1e-3 of the
+     CPU's run of the same route; its final cost beside the PCG-LM
+     kernel's on that graph; solve ms, median of 3 warm runs), on
+     bench_solver's 4,096-node ring with ``f64_schur_above`` off (solve
+     ms and cost beside phase 21's streamed CR-LM solve of it), and
+     ``host_direct_fallback=False`` on phase 22's 3,200-node skip graph:
+     the float64 LM on the card at the reference's λ floor (its good
+     iterations and cost those of the reference's CPU run) and with the
+     floor off (poses within 5e-5 and cost within 1e-6 relative of the
+     host f64 arm's), the wall of each, the partition's separators and
+     factor sizes;
  10. the Hector kernel against its plain version at full width
      (``default_config()``: 1,024² grid, 3 levels, 360 beams) on
      bench_hector's map and scan, with its device time per match from a
@@ -106,7 +120,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      must stay ≤ 0.01 m; then ``karto_map`` of the counted run (its wall,
      its cells; int8-equal to the CPU's map from the same corrected
      poses), its scans/s (one run after the counted one, which warms it),
-     the stage timer, and a run of its first 100 scans under
+     the stage timer, and a run of its first 50 scans under
      ``torch.profiler``;
      then the native library: it must build with g++ and load, and
      ``occupancy_from_scans(engine="native")`` (the C++ host rasterizer)
@@ -136,7 +150,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      plain version on that graph, ``karto_map`` of the result (its wall
      and cells; on the card and the CPU int8-equal on a stride of the
      scans whose CPU run takes ~25 s) and a profile of the run's first
-     50 scans;
+     25 scans;
  14d. GMapping at full width (examples/run_gmapping.py: 352 scans, the
      1,024² grid): hits and visits equal to the CPU's run, cell means
      within 1e-5 relative, the same map, > 200 occupied and > 10,000
@@ -161,7 +175,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      Every NN call must launch the NN kernel (199 × 20, 199 × 10 and
      199 × 10), each ATE stay ≤ 1.1 × the reference's CPU run + 1 mm, and
      PLICPOdometry's keyframes within ±1 of the reference's; then each
-     one's scans/s and a run of its first 50 scans under
+     one's scans/s and a run of its first 20 scans under
      ``torch.profiler``;
  17. examples/run_scan_matching.py's 120 pairs in one batch, counters
      zeroed before each: ``icp_match`` (20 NN launches),
@@ -172,6 +186,12 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      corrected must win), and the correction's wall per scan;
  19. examples/run_feature_detection.py's 120 scans: the card's corner
      masks equal the CPU's, the mean count within 0.5% of the reference's;
+ 19a. the examples (``tpu_slam_torch/examples``), each
+     ``main([])`` once on the card at its own recipe, the launch counters
+     zeroed first: its figures against those the reference example prints
+     on the CPU (``EXAMPLES_REF``: counts equal where the card computes
+     them exactly, accuracies within the lesson phases' slack, map cells
+     within 3%), and its model's kernels launched;
  19b. the command line over bags (``cli.main``), each run with the launch
      counters zeroed first: bags written with ``data/rosbag.write_bag``
      from the online Karto recipe (bz2), the Hector recipe and the bench
@@ -201,8 +221,11 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      ``KartoSLAM(mesh)`` on the 352-scan recipe (the same
      accepts and closures, trajectory within 5e-3) and ``HectorSLAM(mesh)``
      on the 150-scan recipe at the full grid (ATE ≤ 0.06 m; (a) and (b)
-     within 1e-4, every level's map equal); every rank's results equal;
-     a rank that fails or passes its deadline fails the script;
+     within 1e-4, every level's map equal), and the submap-sharded Schur
+     step (``make_distributed_schur_delta``, S = D) on the mission graph
+     (two psums; within 1e-4 × max(|δ|, 1) of ``schur_delta`` on one
+     device at the same partition); every rank's results equal; a rank
+     that fails or passes its deadline fails the script;
  20. the streamed CR-LM kernel against its plain version on bench_solver's
      rings of 4,096 and 16,384 nodes (K 1,024 and 4,096), then on edge
      cases (W = 2, W = 8, 32,768 nodes, and a 24,576-node chain with
@@ -225,7 +248,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      the raw one's;
  24. one JSON line with every kernel (its launches, the PL-ICP and
      correlative kernels' counting the outdoor mission's and every mesh
-     rank's too, the
+     rank's too, every kernel's the examples', the
      correlative and LM kernels' the online outdoor run's, every kernel's
      the command line's runs, the PCG-LM's the restarted ring's, its error
      against its plain version, both times, and its bound: the larger of
@@ -261,6 +284,15 @@ from tpu_slam_torch.convert import solver_from_numpy
 from tpu_slam_torch.data import rosbag
 from tpu_slam_torch.data import simulator as sim
 from tpu_slam_torch.data.scan import Scan, index_scan, make_scan
+from tpu_slam_torch.examples import (
+    run_feature_detection, run_gmapping, run_hector_slam, run_karto_slam,
+    run_lidar_undistortion, run_plicp_odometry, run_scan_matching,
+)
+from tpu_slam_torch.examples.run_karto_slam import (  # noqa: F401
+    drifted_odometry,  # the reference's odometry, which the tests hold
+)
+from tpu_slam_torch.examples.run_lidar_undistortion import first_beam_truth
+from tpu_slam_torch.examples.run_scan_matching import delta_rmse, masked_pairs
 from tpu_slam_torch.models import offline
 from tpu_slam_torch.models.gmapping import GMapping
 from tpu_slam_torch.models.hector_slam import HectorSLAM, _beams
@@ -297,12 +329,15 @@ from tpu_slam_torch.parallel.distributed_step import (
     make_chain_matcher, make_loop_selector, make_packed_indexed_matcher,
 )
 from tpu_slam_torch.parallel.mesh import make_mesh
-from tpu_slam_torch.solver import banded, cr_lm, pcg_lm
+from tpu_slam_torch.solver import banded, cr_lm, pcg_lm, pose_graph
 from tpu_slam_torch.solver.cr_lm import cr_lm_plain, fused_cr_lm
 from tpu_slam_torch.solver.cr_stream import stream_schedule, streamed_cr_lm
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve, pcg_lm_plain
 from tpu_slam_torch.solver.pose_graph import (
     PoseGraphSolver, _route, _sq_min_delta,
+)
+from tpu_slam_torch.solver.schur import (
+    build_partition, make_distributed_schur_delta, schur_delta,
 )
 from tpu_slam_torch.utils.checkpoint import (
     load_hector, load_karto, save_hector,
@@ -339,8 +374,8 @@ KARTO_REF = {"accepted": 126, "closures": 2, "ate": 0.00577}
 # accepted scans, solves and ATE, and the ATE bar, 2x that ATE
 OUTDOOR_ONLINE_REF = {"accepted": 1149, "solves": 61, "ate": 0.024}
 OUTDOOR_ONLINE_ATE_MAX = 0.05  # m
-OUTDOOR_ONLINE_PROFILE_SCANS = 50  # the profiled window of the run
-KARTO_PROFILE_SCANS = 100  # the profiled window of the online Karto run
+OUTDOOR_ONLINE_PROFILE_SCANS = 25  # the profiled window of the run
+KARTO_PROFILE_SCANS = 50  # the profiled window of the online Karto run
 MAP_CPU_BUDGET_S = 25.0  # the CPU run the outdoor map is held to (≤ 30 s)
 GMAPPING_MIN = {"occupied": 200, "free": 10_000}  # examples/run_gmapping.py
 GMAPPING_MEANS_RTOL = 1e-5
@@ -352,7 +387,7 @@ GMAPPING_MEANS_ATOL = 1e-6  # m, where a cell's hits straddle 0
 # each model's ATE (m), and the scan indices at which PLICPOdometry took a
 # keyframe (every second scan)
 LESSON_SCANS = 200
-LESSON_PROFILE_SCANS = 50  # the profiled window of each model's run
+LESSON_PROFILE_SCANS = 20  # the profiled window of each model's run
 LESSON_REF = {"icp": 0.18175, "plicp": 0.000863, "scan_match": 0.003486}
 LESSON_REF_KEYFRAMES = list(range(2, 199, 2))
 # the kernel's direct differences can split a near-tie that the expanded
@@ -1399,13 +1434,7 @@ def hector_seq(n: int, dev, cfg=None):
     scans (radius 1.5 m, 0.6 rad/s) in office_world(seed=31) with the path
     kept clear, noise 0.004, seed 3; (cfg, scans on ``dev``, true poses)."""
     cfg = cfg or default_config()
-    traj = sim.circle_trajectory(n, radius=1.5, angular_rate=0.6)
-    world = sim.office_world(seed=31, clear_path=traj)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
-                                seed=3)
-    scans = make_scan(seq.ranges, cfg.scan,
-                      stamp=seq.stamps.astype(np.float32), device=dev)
-    return cfg, scans, seq.gt_poses
+    return (cfg, *run_hector_slam.recipe(cfg, dev, n))
 
 
 def hector_case(dev, cfg=None, beams=None):
@@ -1645,43 +1674,6 @@ def phase_hector_main(dev) -> int:
     return launches["hector_fused"]
 
 
-def _compose32(a, b):
-    """The reference's ``geometry.compose`` as JAX runs it outside ``jit``:
-    float32, every operation rounded on its own, glibc's sin, cos and
-    atan2 (``ops/correlative.sincosf``, ``atan2f``). a, b: (3,) float32."""
-    s, c = corr.sincosf(a[2:3])
-    st, ct = corr.sincosf(a[2:3] + b[2:3])
-    return torch.cat([(a[0:1] + c * b[0:1]) - s * b[1:2],
-                      (a[1:2] + s * b[0:1]) + c * b[1:2],
-                      corr.atan2f(st, ct)])
-
-
-def _inverse32(a):
-    s, c = corr.sincosf(a[2:3])
-    sn, cn = corr.sincosf(-a[2:3])
-    return torch.cat([-(c * a[0:1] + s * a[1:2]),
-                      -((-s) * a[0:1] + c * a[1:2]), corr.atan2f(sn, cn)])
-
-
-def drifted_odometry(gt, seed: int = 3, trans_sigma: float = 0.02,
-                     rot_sigma: float = 0.004) -> np.ndarray:
-    """tests/test_karto.py's drifting wheel odometry, bit for bit: each
-    true relative motion plus N(0, σ) noise from default_rng(seed),
-    integrated in float32."""
-    rng = np.random.default_rng(seed)
-
-    def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32))
-
-    odom = [gt[0].copy()]
-    for i in range(1, len(gt)):
-        d = _compose32(_inverse32(f32(gt[i - 1])), f32(gt[i])).numpy()
-        d[:2] += rng.normal(0, trans_sigma, 2)
-        d[2] += rng.normal(0, rot_sigma)
-        odom.append(_compose32(f32(odom[-1]), f32(d)).numpy())
-    return np.asarray(odom)
-
-
 def karto_recipe(dev):
     """examples/run_karto_slam.py's recipe at the full ``default_config()``
     (360 beams, 12 m; the 0.3 m / 0.01 m front grid of 2,445² cells, the
@@ -1689,13 +1681,7 @@ def karto_recipe(dev):
     2.6 m, 0.9 m/s, 352 scans), noise 0.004, seed 8, and the drifting
     odometry. Returns (cfg, scans on ``dev``, odometry, true poses)."""
     cfg = default_config()
-    traj = sim.loop_trajectory(arm=9.0, width=2.6, speed=0.9)
-    world = sim.corridor_loop_world(arm=9.0, width=2.6)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
-                                seed=8)
-    scans = make_scan(seq.ranges, cfg.scan,
-                      stamp=seq.stamps.astype(np.float32), device=dev)
-    return cfg, scans, drifted_odometry(seq.gt_poses), seq.gt_poses
+    return (cfg, *run_karto_slam.recipe(cfg, dev))
 
 
 def karto_records(cfg, scans, gt, dev):
@@ -2463,11 +2449,8 @@ def gmapping_recipe():
     9 m, width 2.6 m, 0.9 m/s, 352 scans), noise 0.004, seed 6, at the
     true poses. Returns (cfg, ranges, float32 poses)."""
     cfg = default_config()
-    traj = sim.loop_trajectory(arm=9.0, width=2.6, speed=0.9)
-    world = sim.corridor_loop_world(arm=9.0, width=2.6)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
-                                seed=6)
-    return cfg, seq.ranges, seq.gt_poses.astype(np.float32)
+    scans, poses = run_gmapping.recipe(cfg, "cpu")
+    return cfg, scans.ranges.numpy(), poses
 
 
 def gmapping_run(cfg, ranges, poses, dev):
@@ -2522,27 +2505,13 @@ def phase_gmapping(dev) -> None:
 # --- the lesson front-ends and the NN kernel ------------------------------
 
 
-def masked_pairs(scans):
-    """Consecutive pairs of a scan batch as the matchers take them: (src,
-    src_valid, tgt, tgt_valid), invalid points at 0, each contiguous."""
-    pts = torch.where(scans.valid[..., None], scans.points(), 0.0)
-    return (pts[1:].contiguous(), scans.valid[1:].contiguous(),
-            pts[:-1].contiguous(), scans.valid[:-1].contiguous())
-
-
 def lesson_recipe(dev, n: int = LESSON_SCANS):
     """examples/run_plicp_odometry.py's recipe at the full
     ``default_config()`` (360 beams): an office circle of ``n`` scans
     (radius 1.6 m, 0.6 rad/s) in office_world(seed=21) with the path kept
     clear, noise 0.004, seed 4; (cfg, scans on ``dev``, true poses)."""
     cfg = default_config()
-    traj = sim.circle_trajectory(n, radius=1.6, angular_rate=0.6)
-    world = sim.office_world(seed=21, clear_path=traj)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
-                                seed=4)
-    scans = make_scan(seq.ranges, cfg.scan,
-                      stamp=seq.stamps.astype(np.float32), device=dev)
-    return cfg, scans, seq.gt_poses
+    return (cfg, *run_plicp_odometry.recipe(cfg, dev, n))
 
 
 def scan_matching_recipe(dev, B: int = 120):
@@ -2550,13 +2519,7 @@ def scan_matching_recipe(dev, B: int = 120):
     office circle (office_world(seed=11), radius 1.6 m, 0.6 rad/s, noise
     0.004, seed 4); (cfg, the pairs on ``dev``, the true deltas (B, 3))."""
     cfg = default_config()
-    traj = sim.circle_trajectory(B + 1, radius=1.6, angular_rate=0.6)
-    world = sim.office_world(seed=11, clear_path=traj)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.004,
-                                seed=4)
-    scans = make_scan(seq.ranges, cfg.scan, device=dev)
-    return cfg, masked_pairs(scans), gnp.relative(seq.gt_poses[:-1],
-                                                  seq.gt_poses[1:])
+    return (cfg, *run_scan_matching.recipe(cfg, dev, B))
 
 
 def nn_bound(B: int, N: int, M: int) -> dict:
@@ -2802,13 +2765,6 @@ def phase_lesson_main(dev) -> int:
     return total
 
 
-def delta_rmse(est: np.ndarray, gt: np.ndarray) -> tuple:
-    err = est.astype(np.float64) - gt
-    err[:, 2] = np.arctan2(np.sin(err[:, 2]), np.cos(err[:, 2]))
-    return (float(np.sqrt((err[:, :2] ** 2).mean())),
-            float(np.sqrt((err[:, 2] ** 2).mean())))
-
-
 def phase_scan_matching(dev) -> int:
     """examples/run_scan_matching.py's 120 pairs in one batch, each matcher
     with the counters zeroed first: ``icp_match`` (20 NN launches),
@@ -2861,37 +2817,7 @@ def undistortion_recipe(dev):
     office_world(seed=21)), no noise, seed 3, IMU at 500 Hz and odometry
     at 200 Hz; (cfg, scans and the four streams on ``dev``, the sequence)."""
     cfg = default_config()
-    traj = sim.circle_trajectory(80, radius=1.2, angular_rate=2.0)
-    world = sim.office_world(seed=21, clear_path=traj)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.0, seed=3,
-                                motion_distortion=True, imu_rate_hz=500.0,
-                                odom_rate_hz=200.0)
-    scans = make_scan(seq.ranges, cfg.scan,
-                      stamp=seq.stamps.astype(np.float32), device=dev)
-    streams = tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
-                    for a in (seq.imu_stamps, seq.imu_omega, seq.odom_stamps,
-                              seq.odom_poses))
-    return cfg, scans, streams, seq
-
-
-def first_beam_truth(cfg, raw: torch.Tensor, seq) -> np.ndarray:
-    """The example's ground truth for all scans but the last: each beam's
-    world endpoint from its own interpolated true pose, in the frame of
-    the first beam; (T - 1, N, 2). ``raw`` holds the laser points on the
-    CPU."""
-    n = cfg.scan.num_beams
-    out = []
-    for t in range(raw.shape[0] - 1):
-        bt = seq.stamps[t] + cfg.scan.scan_period / n * np.arange(n)
-        i = np.clip(np.searchsorted(seq.stamps, bt, side="right") - 1, 0,
-                    len(seq.stamps) - 2)
-        alpha = (bt - seq.stamps[i]) / cfg.scan.scan_period
-        poses = geo.interpolate(
-            *(torch.as_tensor(np.asarray(a, np.float32))
-              for a in (seq.gt_poses[i], seq.gt_poses[i + 1], alpha)))
-        world = geo.apply(poses, raw[t][:, None, :])[:, 0, :]
-        out.append(geo.apply(geo.inverse(poses[0]), world))
-    return torch.stack(out).numpy()
+    return (cfg, *run_lidar_undistortion.recipe(cfg, dev))
 
 
 def phase_undistortion(dev) -> int:
@@ -2949,13 +2875,9 @@ def phase_features(dev) -> None:
     within 0.5% of the reference's CPU run, and the call's wall per scan
     (median of 3 after a warm one)."""
     cfg = default_config()
-    traj = sim.circle_trajectory(120, radius=1.6, angular_rate=0.5)
-    world = sim.office_world(seed=9, clear_path=traj)
-    seq = sim.simulate_sequence(world, traj, cfg.scan, noise_std=0.003,
-                                seed=2)
-    scans = make_scan(seq.ranges, cfg.scan, device=dev)
+    scans = run_feature_detection.recipe(cfg, dev)
     mask = extract_corner_features(scans, cfg.features)
-    host = extract_corner_features(make_scan(seq.ranges, cfg.scan,
+    host = extract_corner_features(make_scan(scans.ranges.cpu(), cfg.scan,
                                              device="cpu"), cfg.features)
     same = torch.equal(mask.cpu(), host)
     mean = float(mask.sum(-1).double().mean())
@@ -2977,6 +2899,126 @@ def phase_features(dev) -> None:
                              "CPU's")
     if abs(mean - FEATURES_REF_MEAN) > FEATURES_MEAN_RTOL * FEATURES_REF_MEAN:
         raise AssertionError("features: mean count off the reference's")
+
+
+# --- the examples ---------------------------------------------------
+
+# the figures the reference examples print (examples/*.py --cpu, JAX on the
+# CPU, run once): counts as printed, lengths to 4 decimals, the corner mean
+# to 1
+EXAMPLES_REF = {
+    "run_feature_detection": {"mean": 90.8, "min": 78, "max": 110},
+    "run_gmapping": {"occupied": 2177, "free": 25390, "unknown": 1021009},
+    "run_hector_slam": {"ate": 0.0331, "occupied": 1066, "free": 36283,
+                        "unknown": 224795},
+    "run_karto_slam": {"accepted": 126, "closures": 1, "edges": 131,
+                       "ate_odom": 0.2485, "ate": 0.0225, "occupied": 489,
+                       "free": 3511},
+    "run_lidar_undistortion": {"raw_err": 0.4871, "cor_err": 0.0002},
+    "run_plicp_odometry": {"ate": 0.0009, "rpe": 0.0007},
+    "run_scan_matching": {"icp": (0.0052, 0.0071), "plicp": (0.0004, 0.0001)},
+}
+EXAMPLE_MAP_RTOL = 0.03  # occupied / free cells where the card's sums differ
+
+
+def _slack(ref: float) -> float:
+    """An accuracy figure's bar: the lesson phases' slack over the
+    reference's printed figure."""
+    return LESSON_ATE_SLACK[0] * ref + LESSON_ATE_SLACK[1]
+
+
+def example_bars(name: str, fig: dict, launches: dict) -> list:
+    """(holds, what) for each bar of an example's run on the card: its
+    figures against the reference example's printed ones, and the kernels
+    its model must launch."""
+    ref = EXAMPLES_REF[name]
+    near = lambda k, tol: abs(fig[k] - ref[k]) <= tol  # noqa: E731
+    cells = lambda k: near(k, EXAMPLE_MAP_RTOL * ref[k])  # noqa: E731
+    others = lambda *ks: not any(  # noqa: E731
+        v for k, v in launches.items() if k not in ks)
+    cfg = default_config()
+    if name == "run_feature_detection":
+        return [(f"{fig['mean']:.1f}" == f"{ref['mean']:.1f}"
+                 and (fig["min"], fig["max"]) == (ref["min"], ref["max"]),
+                 "corner counts"), (others(), "no kernel")]
+    if name == "run_gmapping":
+        return [(all(fig[k] == ref[k] for k in ref), "cells"),
+                (others(), "no kernel")]
+    if name == "run_hector_slam":
+        return [(fig["ate"] <= _slack(ref["ate"]), "ATE"),
+                (cells("occupied") and cells("free"), "cells"),
+                (launches["hector_fused"] == fig["scans"] - 1
+                 and others("hector_fused"), "a Hector launch a match")]
+    if name == "run_karto_slam":
+        return [(abs(fig["accepted"] - ref["accepted"]) <= 2
+                 and fig["closures"] >= ref["closures"], "accepts, closures"),
+                (near("ate_odom", 5e-4) and fig["ate"] <= _slack(ref["ate"]),
+                 "ATE"), (cells("occupied") and cells("free"), "cells"),
+                (launches["correlative_response"] > 0
+                 and others("correlative_response"), "correlative launches")]
+    if name == "run_lidar_undistortion":
+        return [(near("raw_err", 1e-4) and fig["cor_err"] <= 2.5e-4,
+                 "endpoint errors"), (others(), "no kernel")]
+    if name == "run_plicp_odometry":
+        return [(fig["ate"] <= _slack(ref["ate"])
+                 and fig["rpe"] <= _slack(ref["rpe"]), "ATE, RPE"),
+                (launches["nn"] == (fig["scans"] - 1)
+                 * cfg.plicp.max_iterations and others("nn"),
+                 "an NN launch a round")]
+    return [(all(fig[k]["trans"] <= _slack(ref[k][0])
+                 and fig[k]["rot"] <= _slack(ref[k][1]) for k in ref),
+             "delta RMSE"),
+            (launches["nn"] == 2 * cfg.icp.max_iterations
+             and launches["plicp_fused"] == 2 and others("nn", "plicp_fused"),
+             "ICP's NN launches, one PL-ICP launch, each call twice")]
+
+
+def _shown(fig: dict) -> dict:
+    """An example's figures without its arrays and objects."""
+    out = {}
+    for k, v in fig.items():
+        if isinstance(v, dict):
+            v = _shown(v)
+        elif isinstance(v, float):
+            v = round(v, 6)
+        elif not isinstance(v, (int, tuple, str)):
+            continue
+        out[k] = v
+    return out
+
+
+def phase_examples(dev) -> dict:
+    """Each example's ``main([])`` once on the card at its own
+    recipe, the launch counters zeroed before each: its figures against
+    the reference example's printed ones (``example_bars``), and each
+    example's wall. Returns the launches."""
+    total = dict.fromkeys(_dispatch.LAUNCHES, 0)
+    examples = (run_feature_detection, run_gmapping, run_hector_slam,
+               run_karto_slam, run_lidar_undistortion, run_plicp_odometry,
+               run_scan_matching)
+    for mod in examples:
+        name = mod.__name__.rsplit(".", 1)[1]
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            fig = mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_dispatch.LAUNCHES)
+        lines = printed.getvalue().splitlines()
+        bars = example_bars(name, fig, launches)
+        for line in lines[:4]:
+            print(f"  {name}| {line}")
+        print(f"example {name}: {wall:.2f} s; figures {_shown(fig)} "
+              f"(reference example {EXAMPLES_REF[name]}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }; bars "
+              f"{ {what: ok for ok, what in bars} }", flush=True)
+        failed = [what for ok, what in bars if not ok]
+        if failed:
+            raise AssertionError(f"example {name}: {failed} off")
+        for k, v in launches.items():
+            total[k] += v
+    return total
 
 
 def bench_ring(M: int):
@@ -3193,7 +3235,7 @@ def phase_large_graph_main(dev) -> dict:
     other LM kernel, and end at χ² ≤ 1e-6 × cost0; then each one's solve
     ms (median of 3 warm runs, the poses reset between runs as
     bench_solver does) and one 16,384-node solve under ``torch.profiler``.
-    Returns the counted launches."""
+    Returns the counted launches and each ring's (solve ms, final cost)."""
     cfg = SolverConfig()
     rings = {M: bench_ring(M) for M in (4096, 16384)}
     solvers = {M: solver_from_numpy(cfg, *g, dev) for M, g in rings.items()}
@@ -3211,6 +3253,7 @@ def phase_large_graph_main(dev) -> dict:
             v for k, v in launches.items() if k != "cr_stream"):
         raise AssertionError("a large-graph solve did not run the streamed "
                              "CR-LM kernel alone")
+    solves = {}
     for M, st in stats.items():
         poses = solvers[M].get_poses()
         walls = []
@@ -3226,17 +3269,19 @@ def phase_large_graph_main(dev) -> dict:
         if not (np.all(np.isfinite(poses))
                 and st.final_cost <= 1e-6 * st.initial_cost):
             raise AssertionError(f"{M}-node ring: χ² did not reach ~0")
+        solves[M] = (sorted(walls)[1], st.final_cost)
     reset(16384)
     prof = device_profile(lambda: solvers[16384].compute(), stages=True)
     print(profile_line("large-graph solve, 16,384 nodes", *prof), flush=True)
-    return launches
+    return launches, solves
 
 
-def phase_host_f64(dev) -> None:
+def phase_host_f64(dev) -> tuple:
     """The host f64 arm on the card's machine: a 3,200-node skip-edge graph
     (tests/test_pose_graph.py's shape) does not band and passes
     ``f64_schur_above`` (3,000), so ``PoseGraphSolver`` on the card solves
-    it in float64 on the host and launches nothing."""
+    it in float64 on the host and launches nothing. Returns (poses,
+    stats, wall s), which ``phase_schur`` holds the device f64 route to."""
     cfg = SolverConfig()
     s = solver_from_numpy(cfg, *skip_graph(3200), dev)
     route = _route(s.num_nodes, s.num_edges, dev, cfg, s._band_spec)
@@ -3254,6 +3299,169 @@ def phase_host_f64(dev) -> None:
             and st.final_cost < st.initial_cost):
         raise AssertionError("the 3,200-node skip-edge graph did not solve "
                              "on the host f64 arm alone")
+    return s.get_poses(), st, wall
+
+
+# --- the Schur-complement routes --------------------------------------------
+
+SCHUR_SHORT_ITERS = 3  # the card against the CPU over whole LM steps
+SCHUR_F64_POSE_TOL = 5e-5  # m / rad, tests/test_pose_graph.py's f64 bar
+SCHUR_F64_COST_RTOL = 1e-6
+# the reference's _compute_f64_schur (JAX, float64, CPU) on the 3,200-node
+# skip graph: 40 good LM iterations to this cost (the port's CPU run gives
+# it to 3e-13); its λ floor keeps it above the host f64 arm's 2286.624028
+SCHUR_F64_REF = (40, 2303.5682659791687)
+SCHUR_F64_REF_RTOL = 1e-9
+
+
+def schur_timed(solver, init, reps: int = 3) -> tuple:
+    """(stats, poses) of one solve from ``init``, then the median ms of
+    ``reps`` more, the poses reset before each (as bench_solver does)."""
+    def solve():
+        for i, p in enumerate(init):
+            solver.set_node_pose(i, p)
+        return solver.compute()
+
+    st = solve()
+    poses = solver.get_poses()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        solve()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return st, poses, sorted(walls)[len(walls) // 2]
+
+
+def schur_shape(solver) -> str:
+    """The partition a Schur route builds for ``solver``'s graph: submaps,
+    internal slots, separators (real and bucketed) and the bytes of its
+    factors in the solve's type."""
+    from tpu_slam_torch.solver.pose_graph import _bucket
+
+    part = solver._schur_partition(_bucket(max(solver.num_nodes, 2)))
+    S, m = part.int_nodes.shape
+    ns = part.sep_nodes.shape[0]
+    return (f"{S} submaps x {m} slots, {int(part.sep_valid.sum())} "
+            f"separators (bucket {ns}); factors L {S} x {3 * m}^2, B {S} x "
+            f"{3 * m} x {3 * ns}, S_c {3 * ns}^2")
+
+
+def phase_schur(dev, res, pcg_base, ring_solves, host_f64) -> dict:
+    """The Schur routes (plain PyTorch, no kernel), each solve with the
+    launch counters zeroed first:
+      * "schur" on the mission's loop-closed graph from its chain
+        (``use_schur``): no kernel launched, two runs bit-equal, the first
+        ``SCHUR_SHORT_ITERS`` LM iterations against the port's CPU run of
+        the same route within LM_POSE_TOL, the final cost beside
+        ``pcg_lm.cu``'s on the same graph, solve ms (median of 3);
+      * "schur" on bench_solver's 4,096-node ring (``use_schur``,
+        ``f64_schur_above`` off, so that it does not take the host arm):
+        solve ms and final cost beside ``cr_stream.cu``'s solve of it;
+      * "f64_schur" on the 3,200-node skip graph
+        (``host_direct_fallback=False``): poses within 5e-5 and cost within
+        1e-6 relative of the host f64 arm's run in this call, the wall of
+        each.
+    Returns the launches (none)."""
+    out = dict.fromkeys(_dispatch.LAUNCHES, 0)
+
+    def counted(fn):
+        _dispatch.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        for k, v in _dispatch.LAUNCHES.items():
+            out[k] += v
+        return r, sum(_dispatch.LAUNCHES.values())
+
+    ei, ej, means, infos = res.solver._edge_arrays()
+    edges = list(zip(ei, ej, means, infos))
+    init = res.chain_poses
+    mcfg = dataclasses.replace(res.solver.cfg, use_schur=True)
+    card = solver_from_numpy(mcfg, init, edges, dev)
+    route = _route(card.num_nodes, card.num_edges, dev, mcfg, card._band_spec)
+    (st, poses, ms), launched = counted(lambda: schur_timed(card, init))
+    again = solver_from_numpy(mcfg, init, edges, dev)
+    st2 = again.compute()
+    same = np.array_equal(again.get_poses(), poses) and tuple(st2) == tuple(st)
+    short = dataclasses.replace(mcfg, max_iterations=SCHUR_SHORT_ITERS)
+    k3 = solver_from_numpy(short, init, edges, dev)
+    h3 = solver_from_numpy(short, init, edges, "cpu")
+    t0 = time.perf_counter()
+    k3.compute(), h3.compute()
+    cpu_s = time.perf_counter() - t0
+    gap = float(pose_gap(torch.as_tensor(k3.get_poses()),
+                         torch.as_tensor(h3.get_poses())).max())
+    pcg_cost = float(pcg_base[3, 1])
+    print(f"schur mission graph: nodes={card.num_nodes} edges={card.num_edges}"
+          f" route {route}, {schur_shape(card)}; cost {st.initial_cost:.6g} -> "
+          f"{st.final_cost:.6g} ({st.iterations} good iterations; pcg_lm.cu "
+          f"on the same graph {pcg_cost:.6g}); solve ms median {ms:.3f} of 3; "
+          f"kernel launches {launched}; two runs bit-equal {same}; after "
+          f"{SCHUR_SHORT_ITERS} iterations against the CPU's run pose max|d| "
+          f"{gap:.3e} (bar {LM_POSE_TOL}; both runs {cpu_s:.2f} s)",
+          flush=True)
+    if not (route == "schur" and launched == 0 and same
+            and gap <= LM_POSE_TOL and np.all(np.isfinite(poses))
+            and st.final_cost < st.initial_cost):
+        raise AssertionError("the mission graph's Schur solve failed its bars")
+
+    rcfg = SolverConfig(use_schur=True, f64_schur_above=0)
+    rinit, redges = bench_ring(4096)
+    ring = solver_from_numpy(rcfg, rinit, redges, dev)
+    route = _route(ring.num_nodes, ring.num_edges, dev, rcfg, ring._band_spec)
+    (rst, rposes, rms), launched = counted(lambda: schur_timed(ring, rinit))
+    cr_ms, cr_cost = ring_solves[4096]
+    print(f"schur 4,096-node ring: route {route}, {schur_shape(ring)}; cost "
+          f"{rst.initial_cost:.6g} -> {rst.final_cost:.6g} ({rst.iterations} "
+          f"good iterations); solve ms median {rms:.3f} of 3 (cr_stream.cu's "
+          f"solve {cr_ms:.3f} ms to cost {cr_cost:.6g}); kernel launches "
+          f"{launched}", flush=True)
+    if not (route == "schur" and launched == 0 and np.all(np.isfinite(rposes))
+            and rst.final_cost < rst.initial_cost):
+        raise AssertionError("the 4,096-node ring's Schur solve failed")
+
+    hposes, hst, hwall = host_f64
+    fcfg = SolverConfig(host_direct_fallback=False)
+    sinit, sedges = skip_graph(3200)
+    f64 = solver_from_numpy(fcfg, sinit, sedges, dev)
+    route = _route(f64.num_nodes, f64.num_edges, dev, fcfg, f64._band_spec)
+    (fst, fposes, fms), launched = counted(lambda: schur_timed(f64, sinit))
+    with patched(pose_graph, "F64_SCHUR_LAMBDA_FLOOR", 0.0):
+        (xst, xposes, xms), xlaunched = counted(
+            lambda: schur_timed(f64, sinit))
+    host = solver_from_numpy(SolverConfig(), sinit, sedges, dev)
+    t0 = time.perf_counter()
+    host.compute()
+    hwall2 = time.perf_counter() - t0
+
+    def off_host(st, poses):
+        return (float(pose_gap(torch.as_tensor(poses),
+                               torch.as_tensor(hposes)).max()),
+                abs(st.final_cost - hst.final_cost) / abs(hst.final_cost))
+
+    fgap, frel = off_host(fst, fposes)
+    xgap, xrel = off_host(xst, xposes)
+    ref_iters, ref_cost = SCHUR_F64_REF
+    rrel = abs(fst.final_cost - ref_cost) / ref_cost
+    print(f"f64 schur skip graph: nodes={f64.num_nodes} edges={f64.num_edges} "
+          f"route {route}, {schur_shape(f64)} (float64); at the reference's "
+          f"λ floor: cost {fst.initial_cost:.10g} -> {fst.final_cost:.10g} "
+          f"({fst.iterations} good iterations; the reference's CPU run "
+          f"{ref_cost:.10g} in {ref_iters}, rel {rrel:.2e}), from the host "
+          f"f64 arm's poses max|d| {fgap:.3e} cost rel {frel:.2e}; without "
+          f"the floor (exact steps): cost {xst.final_cost:.10g} "
+          f"({xst.iterations}), from the host f64 arm's poses max|d| "
+          f"{xgap:.3e} (bar {SCHUR_F64_POSE_TOL}) cost rel {xrel:.2e}; wall "
+          f"(median of 3 warm): device f64 Schur {fms / 1e3:.3f} s, without "
+          f"the floor {xms / 1e3:.3f} s, host f64 arm {hwall:.3f} s (phase 22)"
+          f" and {hwall2:.3f} s (again here; cost {hst.final_cost:.10g} in "
+          f"{hst.iterations}); kernel launches {launched + xlaunched}",
+          flush=True)
+    if not (route == "f64_schur" and launched == xlaunched == 0
+            and fst.iterations == ref_iters and rrel <= SCHUR_F64_REF_RTOL
+            and xgap <= SCHUR_F64_POSE_TOL and xrel <= SCHUR_F64_COST_RTOL):
+        raise AssertionError("the device f64 Schur LM is off the reference's "
+                             "run, or its exact steps off the host f64 arm")
+    return out
 
 
 def phase_offline_corrected(dev) -> int:
@@ -3663,6 +3871,7 @@ MESH_POSE_TOL = 5e-4  # m / rad (see mesh_inputs)
 MESH_KARTO_TOL = 5e-3
 MESH_HECTOR_TOL = 1e-4  # between the two cases
 MESH_GATHER_REPS = 50
+MESH_SCHUR_TOL = 1e-4  # × max(|δ|, 1): tests/test_schur.py's bar
 SCAN_FIELDS = ("ranges", "valid", "angles", "stamp", "time_increment")
 
 
@@ -3722,6 +3931,8 @@ def mesh_inputs(dev, mission, karto, hector) -> tuple[dict, dict]:
                    "pose0": hgt[0]},
     }
     refs = {
+        "schur": {D: schur_delta(schur_part(inputs["graph"], D), *schur_args(
+            inputs["graph"], dev)).cpu().numpy() for _l, D, _b in MESH_CASES},
         "matcher": packed.cpu().numpy(),
         "pgs": (single.get_poses(), tuple(pgs_stats)),
         "offline": _offline_out(res), "offline1": _offline_out(res1),
@@ -3731,6 +3942,28 @@ def mesh_inputs(dev, mission, karto, hector) -> tuple[dict, dict]:
         "mission_gt": mgt, "hector_gt": hgt,
     }
     return inputs, refs
+
+
+def schur_args(graph: dict, dev) -> tuple:
+    """``schur_delta``'s arguments for the mesh phase's graph: its chain
+    poses, every edge, λ the solver's initial one, node 0 fixed."""
+    n = len(graph["init"])
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.as_tensor(graph["init"], **f32),
+            torch.as_tensor(graph["ei"], device=dev),
+            torch.as_tensor(graph["ej"], device=dev),
+            torch.as_tensor(graph["means"], **f32),
+            torch.as_tensor(graph["infos"], **f32),
+            torch.ones(len(graph["ei"]), dtype=torch.bool, device=dev),
+            np.float32(graph["cfg"].initial_lambda),
+            torch.arange(n, device=dev) > 0)
+
+
+def schur_part(graph: dict, S: int):
+    """The mesh phase's graph cut into S submaps."""
+    return build_partition(graph["ei"], graph["ej"],
+                           np.ones(len(graph["ei"]), bool), len(graph["init"]),
+                           S)
 
 
 def _offline_out(res) -> dict:
@@ -3816,6 +4049,9 @@ def mesh_rank(rank: int, D: int, backend: str, device: str, port: int,
     sync()
     out["gather_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_GATHER_REPS
     out["gather_floats"] = x.numel() * D
+    step = make_distributed_schur_delta(mesh, schur_part(gph, D))
+    out["schur"] = counted("schur", lambda: step(*schur_args(gph, dev))
+                           ).cpu().numpy()
     o = inp["mission"]
     for name, key in (("offline1", "cfg1"), ("offline", "cfg")):
         out[name] = _offline_out(counted(name, lambda: offline_slam(
@@ -3882,7 +4118,7 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
     ranks, to the bars above; prints the case's line."""
     o = outs[0]
     for r, other in enumerate(outs[1:], 1):
-        for key in ("matcher", "pgs"):
+        for key in ("matcher", "pgs", "schur"):
             if not np.array_equal(other[key], o[key]):
                 raise AssertionError(f"mesh ({label}): rank {r}'s {key} "
                                      "differs from rank 0's")
@@ -3915,6 +4151,10 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
                  else float("inf"))
     hec_ate = float(ate_rmse(o["hector"]["est"], refs["hector_gt"],
                              align=False))
+    sref = refs["schur"][D]
+    schur_gap = _max_gap(o["schur"], sref)
+    schur_bar = MESH_SCHUR_TOL * max(float(np.abs(sref).max()), 1.0)
+    schur_coll = o["collectives"]["schur"]
     coll = o["collectives"]["pgs"]
     lm_iters = o["pgs_stats"][0]
     per_rank = [(sum(x["launches"][k]["plicp_fused"]
@@ -3939,7 +4179,10 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
           f"bit-equal {mesh_bits}); karto accepted "
           f"{len(kt['accepted'])} closures {kt['closures']} (unsharded "
           f"{len(rk['accepted'])}, {rk['closures']}) trajectory max|d| "
-          f"{karto_gap:.3e}; hector ATE {hec_ate:.5f} m; PL-ICP and "
+          f"{karto_gap:.3e}; hector ATE {hec_ate:.5f} m; Schur step at S = D "
+          f"{o['walls']['schur'] * 1e3:.1f} ms, collectives {schur_coll}, "
+          f"max|d| {schur_gap:.3e} from one device's (bar {schur_bar:.1e}); "
+          f"PL-ICP and "
           f"correlative launches per rank {per_rank}", flush=True)
     checks = [
         (matcher_eq, "the sharded matcher differs from the unsharded kernel"),
@@ -3957,6 +4200,9 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
         (karto_same and karto_gap <= MESH_KARTO_TOL,
          "KartoSLAM(mesh) is off the single-device run"),
         (hec_ate <= HECTOR_ATE_MAX, "HectorSLAM(mesh) ATE above its bar"),
+        (schur_gap <= schur_bar and schur_coll["psum"] == 2
+         and np.all(np.isfinite(o["schur"])),
+         "the sharded Schur step is off the one-device step"),
         (all(p > 0 and c > 0 for p, c in per_rank),
          "a rank launched no PL-ICP or no correlative kernel"),
     ]
@@ -4030,8 +4276,8 @@ def main() -> None:
     clock("PL-ICP, CR-LM and edge cases")
     stream = phase_cr_stream(dev)
     phase_cr_both(dev)
-    large_launches = phase_large_graph_main(dev)
-    phase_host_f64(dev)
+    large_launches, ring_solves = phase_large_graph_main(dev)
+    host_f64 = phase_host_f64(dev)
     phase_offline_corrected(dev)
     clock("large pose graphs, host f64 arm, corrected mission")
     cfg, scans, odom, gt, res, launches, batches = phase_main_path(dev)
@@ -4042,6 +4288,8 @@ def main() -> None:
     phase_mission_rate(cfg, scans, odom)
     phase_profile(cfg, scans, odom)
     clock("mission")
+    phase_schur(dev, res, pcg_base, ring_solves, host_f64)
+    clock("Schur routes")
     hector = phase_hector(dev)
     phase_hector_edges(dev)
     hector_launches = phase_hector_main(dev)
@@ -4070,6 +4318,8 @@ def main() -> None:
     nn_launches += phase_undistortion(dev)
     phase_features(dev)
     clock("scan matching, undistortion, features")
+    examples = phase_examples(dev)
+    clock("examples")
     cli_launches = phase_bag_cli(dev)
     clock("command line and bag replay")
     mesh_launches = phase_mesh(dev, *mesh_inputs(
@@ -4083,29 +4333,30 @@ def main() -> None:
          "replaces": "tpu_slam/ops/pallas/plicp_fused.py:585",
          "launches": launches["plicp_fused"]
          + outdoor_launches["plicp_fused"] + cli_launches["plicp_fused"]
-         + mesh_launches["plicp_fused"],
+         + mesh_launches["plicp_fused"] + examples["plicp_fused"],
          **plicp},
         {"name": "cr_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_lm.cu",
          "replaces": "tpu_slam/solver/pallas_cr_lm.py:573",
          "launches": launches["cr_lm"] + online_launches["cr_lm"]
-         + cli_launches["cr_lm"], **cr},
+         + cli_launches["cr_lm"] + examples["cr_lm"], **cr},
         {"name": "cr_stream", "route": "cuda",
          "source": "tpu_slam_torch/csrc/cr_stream.cu",
          "replaces": "tpu_slam/solver/cr_stream.py:529",
          "launches": large_launches["cr_stream"]
-         + online_launches["cr_stream"] + cli_launches["cr_stream"],
-         **stream},
+         + online_launches["cr_stream"] + cli_launches["cr_stream"]
+         + examples["cr_stream"], **stream},
         {"name": "pcg_lm", "route": "cuda",
          "source": "tpu_slam_torch/csrc/pcg_lm.cu",
          "replaces": "tpu_slam/solver/pallas_lm.py:384",
          "launches": launches["pcg_lm"] + online_launches["pcg_lm"]
-         + restart_launches["pcg_lm"] + cli_launches["pcg_lm"], **pcg},
+         + restart_launches["pcg_lm"] + cli_launches["pcg_lm"]
+         + examples["pcg_lm"], **pcg},
         {"name": "hector_fused", "route": "cuda",
          "source": "tpu_slam_torch/csrc/hector_fused.cu",
          "replaces": "tpu_slam/ops/pallas/hector_fused.py:269",
-         "launches": hector_launches + cli_launches["hector_fused"],
-         **hector},
+         "launches": hector_launches + cli_launches["hector_fused"]
+         + examples["hector_fused"], **hector},
         {"name": "correlative_response", "route": "cuda",
          "source": "tpu_slam_torch/csrc/correlative_response.cu",
          "replaces": "tpu_slam/ops/pallas/correlative_response.py:160",
@@ -4113,10 +4364,12 @@ def main() -> None:
          + outdoor_launches["correlative_response"]
          + online_launches["correlative_response"]
          + cli_launches["correlative_response"]
-         + mesh_launches["correlative_response"], **resp},
+         + mesh_launches["correlative_response"]
+         + examples["correlative_response"], **resp},
         {"name": "nn", "route": "cuda", "source": "tpu_slam_torch/csrc/nn.cu",
          "replaces": "tpu_slam/ops/pallas/nn.py:50",
-         "launches": nn_launches + cli_launches["nn"], **nn},
+         "launches": nn_launches + cli_launches["nn"] + examples["nn"],
+         **nn},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

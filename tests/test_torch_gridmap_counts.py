@@ -53,6 +53,21 @@ def _scans(seed, T_=6, N=180, rmax=9.0):
     return poses, pl, r, wp
 
 
+def test_cell_index_bounds():
+    """tests/test_gridmap.py::test_cell_index_bounds on the port's public
+    ``cell_index``, and its cells equal to the reference's."""
+    c = np.array([[0.5, 0.5], [-1.0, 3.0], [127.5, 127.5], [128.0, 5.0],
+                  [63.9995, 0.0], [-0.0005, 2.0]], np.float32)
+    flat, inb = T.cell_index(TCFG, _t(c))
+    assert inb.tolist() == [True, False, True, False, True, True]
+    assert int(flat[0]) == 0
+    assert int(flat[2]) == 127 * 128 + 127
+    assert int(flat[1]) == T.OOB_INDEX
+    jflat, jinb = J.cell_index(CFG, jnp.asarray(c))
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
+    np.testing.assert_array_equal(inb.numpy(), np.asarray(jinb))
+
+
 def test_apply_pose_is_the_compiled_references():
     poses, pl, _r, wp = _scans(0)
     np.testing.assert_array_equal(

@@ -16,6 +16,7 @@ from tpu_slam import config as jconfig
 from tpu_slam import geometry_np as jgnp
 from tpu_slam.data import simulator as jsim
 from tpu_slam.solver import banded as jbanded
+from tpu_slam.solver import schur as jschur
 from tpu_slam.utils import evaluation as jeval
 from tpu_slam.utils import events as jevents
 from tpu_slam.utils import map_io as jmap_io
@@ -24,6 +25,7 @@ from tpu_slam_torch import geometry_np as tgnp
 from tpu_slam_torch.convert import config_from_dict
 from tpu_slam_torch.data import simulator as tsim
 from tpu_slam_torch.solver import banded as tbanded
+from tpu_slam_torch.solver import schur as tschur
 from tpu_slam_torch.utils import evaluation as teval
 from tpu_slam_torch.utils import events as tevents
 from tpu_slam_torch.utils import map_io as tmap_io
@@ -172,6 +174,27 @@ def test_prepare_banded_gives_the_same_spec():
                                   jbanded.flat_poses_np(js, gt))
     assert tbanded.spec_cache_key(ei, ej, np.ones(len(ei), bool), n) == \
         jbanded.spec_cache_key(ei, ej, np.ones(len(ei), bool), n)
+
+
+@pytest.mark.parametrize("n, S, seed", [(64, 4, 0), (200, 8, 1),
+                                         (37, 5, 2), (16, 1, 3)])
+def test_schur_partition_is_the_same(n, S, seed):
+    """``build_partition`` and ``bucket_partition``: every field equal, on
+    a chain with random closures (both directions, duplicates, masked
+    edges)."""
+    rng = np.random.default_rng(seed)
+    k = 3 * n // 4
+    ei = np.r_[np.arange(n - 1), rng.integers(0, n, k)]
+    ej = np.r_[np.arange(1, n), rng.integers(0, n, k)]
+    mask = rng.random(len(ei)) > 0.1
+    ref = jschur.build_partition(ei, ej, mask, n, S)
+    out = tschur.build_partition(ei, ej, mask, n, S)
+    for a, b in ((out, ref), (tschur.bucket_partition(out),
+                              jschur.bucket_partition(ref))):
+        assert (a.n_submaps, a.n_nodes) == (b.n_submaps, b.n_nodes)
+        for name in jschur._PART_ARRAY_FIELDS:
+            x, y = getattr(a, name), getattr(b, name)
+            assert x.dtype == y.dtype and np.array_equal(x, y), name
 
 
 def test_ate_is_the_same():

@@ -70,7 +70,11 @@ def test_port_and_chip_smoke_import_without_jax():
         "tpu_slam_torch.parallel.mesh", "tpu_slam_torch.parallel.multihost",
         "tpu_slam_torch.parallel.loop_search",
         "tpu_slam_torch.parallel.sharded_map",
-        "tpu_slam_torch.solver.distributed",
+        "tpu_slam_torch.solver.distributed", "tpu_slam_torch.solver.schur",
+        "tpu_slam_torch.examples",
+        *(f"tpu_slam_torch.examples.run_{name}" for name in (
+            "feature_detection", "gmapping", "hector_slam", "karto_slam",
+            "lidar_undistortion", "plicp_odometry", "scan_matching")),
     }
     assert expected <= set(out["mods"])
 

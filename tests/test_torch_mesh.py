@@ -32,6 +32,7 @@ from tpu_slam_torch.solver import distributed as tsd
 
 import torch_mesh_ranks as ranks
 from test_parallel import ring
+from test_schur import ring_graph as schur_ring
 from test_torch_host_copies import port_config
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -82,6 +83,14 @@ def lm_case():
         np.float32)
     poses[0] = gt[0]
     return M, (poses, eip, ejp, meansp, infos, mask, np.float32(1e-3), free)
+
+
+@functools.lru_cache(maxsize=None)
+def schur_case():
+    """tests/test_schur.py's 64-node ring, as ``schur_delta`` takes it."""
+    poses, ei, ej, means, infos, mask, free = schur_ring(64)
+    return (poses, ei.astype(np.int64), ej.astype(np.int64), means, infos,
+            mask, np.float32(1e-3), free)
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,6 +147,7 @@ def _cases(D: int):
                          tp=args[2], tv=args[3], g=args[4],
                          store_idx=store)),
         ("lm_delta", dict(args=lm_args, M=M, cg_iters=60)),
+        ("schur_delta", dict(args=schur_case())),
         ("ring_search", dict(queries=q, kfs=kf)),
         ("logodds", dict(gcfg=port_config(GRID),
                          locfg=port_config(LogOddsConfig()),
@@ -309,6 +319,28 @@ def test_distributed_deltas_match_jax_and_one_device():
     np.testing.assert_allclose(
         cg, tsd.make_distributed_cg_delta(one, M, 60)(*t).numpy(), atol=5e-3)
     np.testing.assert_allclose(cg, dense, atol=5e-3)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_distributed_schur_delta_matches_single(D):
+    """make_distributed_schur_delta at S = D against schur_delta on one
+    device at the same partition, within tests/test_schur.py's 1e-4, and
+    against the reference's single-program step; every rank alike."""
+    from tpu_slam.solver.schur import build_partition as jbuild
+    from tpu_slam.solver.schur import schur_delta as jschur
+    from tpu_slam_torch.solver.schur import build_partition, schur_delta
+
+    dist = _same_on_every_rank(port_at(D)["schur_delta"])
+    a = schur_case()
+    M = len(a[0])
+    t = [torch.as_tensor(x) for x in a]
+    t[6] = float(a[6])
+    single = schur_delta(build_partition(a[1], a[2], a[5], M, D), *t).numpy()
+    np.testing.assert_allclose(dist, single, rtol=0, atol=1e-4)
+    jpart = jbuild(a[1], a[2], a[5], M, D)
+    ref = np.asarray(jax.jit(lambda *x: jschur(jpart, *x))(
+        *(jnp.asarray(x) for x in a)))
+    np.testing.assert_allclose(dist, ref, rtol=0, atol=1e-4)
 
 
 # --- ring loop search ----------------------------------------------------

@@ -160,9 +160,12 @@ def test_degenerate_covariance_is_regularized():
 
 
 def test_unported_routes_raise():
-    """The mesh route is ported: on a mesh of one rank the edge-sharded LM
-    (dense and CG) gives the single-device solve to the reference's mesh
-    bars; the device f64 Schur solve and Schur still raise."""
+    """Every route is ported, and none raises. On a mesh of one rank the
+    edge-sharded LM (dense and CG) gives the single-device solve to the
+    reference's mesh bars; the two Schur routes, which raised until they
+    were ported, solve the same graph as the reference's (the device f64
+    Schur LM within tests/test_pose_graph.py's 5e-5, the float32 Schur LM
+    within 5e-4)."""
     from tpu_slam_torch.parallel.mesh import make_mesh
 
     init, edges, _gt = _ring(n=80, stride=1)
@@ -179,15 +182,19 @@ def test_unported_routes_raise():
         assert stats.final_cost == pytest.approx(ref_stats.final_cost,
                                                  rel=1e-2, abs=1e-6)
     # at f64_schur_above nodes the host f64 arm runs; without it the
-    # device f64 Schur solve, not ported
-    with pytest.raises(NotImplementedError,
-                       match=r"f64 Schur .*queue 1, item 7"):
-        _port_solve(SolverConfig(use_dense_below=32, f64_schur_above=64,
-                                 use_direct=False,
-                                 host_direct_fallback=False), init, edges)
-    with pytest.raises(NotImplementedError, match=r"Schur.*queue 1, item 7"):
-        _port_solve(SolverConfig(use_dense_below=32, use_schur=True),
-                    init, edges)
+    # device f64 Schur LM, and with use_schur the float32 Schur LM
+    for cfg, route, tol in (
+            (SolverConfig(use_dense_below=32, f64_schur_above=64,
+                          use_direct=False, host_direct_fallback=False),
+             "f64_schur", 5e-5),
+            (SolverConfig(use_dense_below=32, use_schur=True), "schur",
+             5e-4)):
+        assert tpg._route(len(init), len(edges), "cpu", cfg) == route
+        (js, jp), (ts, tp) = (_jax_solve(cfg, init, edges),
+                              _port_solve(cfg, init, edges))
+        np.testing.assert_allclose(tp, jp, rtol=0, atol=tol)
+        assert ts.final_cost == pytest.approx(js.final_cost, rel=1e-2,
+                                              abs=1e-6)
 
 
 @pytest.mark.parametrize("nodes, bands, kw, route", [
@@ -201,6 +208,14 @@ def test_unported_routes_raise():
     (4000, False, {}, "host_f64"),
     (1000, False, dict(cg_restarts=2), "pcg"),
     (1000, False, {}, "pcg"),
+    # the reference's partition test (:1033-1038): more than 2 ×
+    # schur_submaps nodes and at least use_dense_below, from use_dense_below
+    # itself; a use_schur graph that fails it takes the LM program
+    (512, False, dict(use_schur=True), "schur"),
+    (520, False, dict(use_schur=True, schur_submaps=300), "pcg"),
+    (600, False, dict(use_schur=True, schur_submaps=300), "pcg"),
+    (601, False, dict(use_schur=True, schur_submaps=300), "schur"),
+    (500, False, dict(use_schur=True), "dense"),
 ])
 def test_route_order_is_the_reference_order(nodes, bands, kw, route):
     cfg = SolverConfig(**kw)

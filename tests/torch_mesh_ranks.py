@@ -164,6 +164,22 @@ def job_lm_delta(mesh, args, M, cg_iters):
             .numpy()}
 
 
+def job_schur_delta(mesh, args):
+    """The submap-sharded Schur step at S = D (one submap a rank) of the
+    graph ``args`` (poses, ei, ej, means, infos, mask, lam, free)."""
+    import torch
+
+    from tpu_slam_torch.solver.schur import (
+        build_partition, make_distributed_schur_delta,
+    )
+
+    poses, ei, ej, _m, _i, mask, _l, _f = args
+    part = build_partition(ei, ej, mask, len(poses), mesh.size)
+    a = [torch.as_tensor(x) for x in args]
+    a[6] = float(args[6])
+    return make_distributed_schur_delta(mesh, part)(*a).numpy()
+
+
 def job_ring_search(mesh, queries, kfs):
     import torch
 

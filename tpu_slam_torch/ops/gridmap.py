@@ -69,20 +69,29 @@ def cell_to_world(cfg: GridConfig, cxy: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def cell_index(cfg: GridConfig, cxy: torch.Tensor, eps: float = _CELL_EPS):
+    """Fractional cell coords → (flat row-major int64 index, inbounds mask):
+    the floor of each coordinate + ``eps``. Off the grid the index is
+    ``OOB_INDEX``, which the scatters drop — the vectorized form of the
+    reference's pointOutOfMapBounds/IsUpTo guards."""
+    ix = torch.floor(cxy[..., 0] + eps).to(torch.int64)
+    iy = torch.floor(cxy[..., 1] + eps).to(torch.int64)
+    inb = (ix >= 0) & (ix < cfg.size_x) & (iy >= 0) & (iy < cfg.size_y)
+    return torch.where(inb, iy * cfg.size_x + ix,
+                       torch.full_like(ix, OOB_INDEX)), inb
+
+
 def _cell_of(cfg: GridConfig, xy: torch.Tensor) -> torch.Tensor:
     """World coords → flat row-major int64 cell index, ``OOB_INDEX`` off
     the grid: the floor of (xy − origin)·float32(1/resolution) + ε, the
     product and the sum in one fma, as compiled XLA rounds the
-    reference's ``cell_index(world_to_cell(xy))``."""
+    reference's ``cell_index(world_to_cell(xy))`` (the coordinates carry
+    ε already, so ``cell_index`` adds none)."""
     inv = recip32(cfg.resolution)
-    ix = torch.floor(_fma(xy[..., 0] - cfg.origin_x, inv,
-                          torch.full_like(xy[..., 0], _CELL_EPS)))
-    iy = torch.floor(_fma(xy[..., 1] - cfg.origin_y, inv,
-                          torch.full_like(xy[..., 1], _CELL_EPS)))
-    ix, iy = ix.to(torch.int64), iy.to(torch.int64)
-    inb = (ix >= 0) & (ix < cfg.size_x) & (iy >= 0) & (iy < cfg.size_y)
-    return torch.where(inb, iy * cfg.size_x + ix,
-                       torch.full_like(ix, OOB_INDEX))
+    eps = torch.full_like(xy[..., 0], _CELL_EPS)
+    cxy = torch.stack([_fma(xy[..., 0] - cfg.origin_x, inv, eps),
+                       _fma(xy[..., 1] - cfg.origin_y, inv, eps)], -1)
+    return cell_index(cfg, cxy, eps=0.0)[0]
 
 
 def ray_cell_indices(

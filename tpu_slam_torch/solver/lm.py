@@ -11,7 +11,7 @@ weighted by the information matrix Ω = covariance⁻¹.
 λ halves on an accepted step and is multiplied by ``laminc`` on a rejected
 one (``laminc`` then doubles); a step is accepted when it lowers the cost;
 the loop stops once ‖δ‖² < ``sq_min_delta`` or after ``iters`` steps. λ is
-kept in float32, as the kernels keep it.
+kept in float32, as the kernels keep it (in float64 on a float64 solve).
 """
 
 from __future__ import annotations
@@ -108,7 +108,9 @@ def damped(Hd, lam):
     """Diagonal blocks with a 1e-12 jitter, their diagonal × (1+λ)
     (spa2d setupSys)."""
     eye3 = torch.eye(3, dtype=Hd.dtype, device=Hd.device)
-    return (Hd + 1e-12 * eye3) * torch.where(eye3 > 0, 1.0 + float(lam), 1.0)
+    # 1 + λ in the type of the blocks (a bare float here would be float32)
+    scale = torch.tensor(1.0 + float(lam), dtype=Hd.dtype, device=Hd.device)
+    return (Hd + 1e-12 * eye3) * torch.where(eye3 > 0, scale, 1.0)
 
 
 def finalize_dense_solve(H, b, lam, free_mask):
@@ -142,14 +144,16 @@ def wrap_headings(poses):
                                                 torch.cos(poses[:, 2:]))], 1)
 
 
-def lm_loop(p0, cost_of, step_of, wrap, lam0, iters, sq_min_delta):
+def lm_loop(p0, cost_of, step_of, wrap, lam0, iters, sq_min_delta,
+            lam_type=np.float32):
     """Run the schedule from poses ``p0``. ``cost_of(p)`` is the graph
-    cost, ``step_of(p, lam)`` the damped Gauss-Newton step (lam a float32
-    scalar) and ``wrap(cand)`` the candidate with its headings wrapped.
-    Returns (poses, cost0, cost, good, iterations)."""
+    cost, ``step_of(p, lam)`` the damped Gauss-Newton step (lam a
+    ``lam_type`` scalar: float32 as the kernels keep it, float64 for a
+    float64 solve) and ``wrap(cand)`` the candidate with its headings
+    wrapped. Returns (poses, cost0, cost, good, iterations)."""
     p = p0
     cost0 = cost = cost_of(p0)
-    lam, laminc = np.float32(lam0), np.float32(2.0)
+    lam, laminc = lam_type(lam0), lam_type(2.0)
     good = it = 0
     while it < iters:
         delta = step_of(p, lam)
@@ -159,11 +163,11 @@ def lm_loop(p0, cost_of, step_of, wrap, lam0, iters, sq_min_delta):
         it += 1
         if bool(new_cost < cost) and not converged:
             p, cost = cand, new_cost
-            lam = lam * np.float32(0.5)
+            lam = lam * lam_type(0.5)
             good += 1
         else:
             lam = lam * laminc
-            laminc = laminc * np.float32(2.0)
+            laminc = laminc * lam_type(2.0)
         if converged:
             break
     return p, cost0, cost, good, it

@@ -6,39 +6,44 @@ The residual model, the normal equations and the LM schedule are doSPA's
 ``convergence_delta``.
 
 Routing (``_route``) follows the reference's on its TPU, in its order:
+  * a graph above ``use_dense_below`` nodes that bands under RCM
+    (``use_direct``, no ``use_schur``) → the cyclic-reduction LM:
+    ``solver/cr_lm.fused_cr_lm`` up to ``K_MAX`` (512) supernodes,
+    ``solver/cr_stream.streamed_cr_lm`` above;
+  * a graph of ``f64_schur_above`` nodes or more → the float64
+    sparse-direct LM on the host (``_host_direct_lm``), ``use_schur`` or
+    not; with ``host_direct_fallback=False`` the float64 LM on the
+    solver's device whose every step is a direct Schur solve
+    ("f64_schur", ``mixed_schur_delta``);
   * nodes ≤ ``use_dense_below`` on ``cuda`` → the block-Jacobi PCG LM
     (``solver/pcg_lm.fused_lm_solve``) where the reference runs its fused
     Pallas LM: ``use_fused_kernel``, ``cg_restarts ≤ 1``, no ``use_schur``,
     and the kernel's shapes (nodes and edges rounded up to 256) neither
     above the power-of-two buckets of the XLA program nor past the one-hot
-    cap. Graphs of ≤ 128 nodes or ≤ 128 edges fail the bucket test. Every
-    other small graph → the dense LM below, which is also the reference's
-    route off the TPU;
-  * a larger graph that bands under RCM (``use_direct``, no
-    ``use_schur``) → the cyclic-reduction LM: ``solver/cr_lm.fused_cr_lm``
-    up to ``K_MAX`` (512) supernodes, ``solver/cr_stream.streamed_cr_lm``
-    above;
-  * a graph of ``f64_schur_above`` nodes or more → the float64
-    sparse-direct LM on the host (``_host_direct_lm``), ``use_schur`` or
-    not; with ``host_direct_fallback=False`` the device f64 Schur solve,
-    which raises;
-  * ``use_schur`` raises;
-  * any other graph → the PCG LM, with ``cg_restarts`` runs of CG a step
-    (the reference's TPU sends ``cg_restarts > 1`` to its XLA LM program,
-    the same block-Jacobi PCG LM as its fused kernel).
+    cap. Graphs of ≤ 128 nodes or ≤ 128 edges fail the bucket test;
+  * ``use_schur`` with more than 2 × ``schur_submaps`` nodes and at least
+    ``use_dense_below`` → the float32 LM whose every step is a Schur solve
+    ("schur", ``solver/schur.schur_delta``) over the reference's partition
+    of the graph padded to its power-of-two node bucket;
+  * any other graph → the dense LM at ≤ ``use_dense_below`` nodes (also
+    the reference's route off the TPU), else the PCG LM, with
+    ``cg_restarts`` runs of CG a step (the reference's TPU sends
+    ``cg_restarts > 1`` to its XLA LM program, the same block-Jacobi PCG
+    LM as its fused kernel).
 With a mesh every graph takes the edge-sharded LM of
 ``solver/distributed.mesh_lm``: dense up to ``use_dense_below`` nodes
 ("mesh_dense"), CG above ("mesh_cg", with ``cg_restarts`` and
 ``cg_tolerance``). As in the reference, a mesh skips the direct CR route,
 the host f64 arm, the fused kernel and Schur.
-The device routes launch their CUDA kernel on ``cuda`` and run its plain
-version on ``cpu``; the host arm runs on the host on either device.
-Routes not ported raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+The kernel routes launch their CUDA kernel on ``cuda`` and run its plain
+version on ``cpu``; the host arm runs on the host on either device; the
+dense and Schur routes are plain PyTorch on the solver's device (the
+reference's are XLA programs) and launch no kernel.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -62,6 +67,9 @@ from tpu_slam_torch.solver.lm import (  # noqa: F401  (the reference's names)
     wrap_headings,
 )
 from tpu_slam_torch.solver.pcg_lm import fused_lm_solve
+from tpu_slam_torch.solver.schur import (
+    bucket_partition, build_partition, schur_delta,
+)
 
 # the fused LM's one-hot cap on (nodes × edges), rounded up to 256 each
 # (tpu_slam/solver/pallas_lm.py MAX_ONEHOT_ELEMS)
@@ -70,6 +78,14 @@ MAX_ONEHOT_ELEMS = 3_200_000
 # graph topology (banded.spec_cache_key) → RCM band spec, or None where the
 # graph does not band; the reference keeps the same cache (_CR_SPEC_CACHE)
 _SPEC_CACHE: dict = {}
+# (bucketed nodes, submaps, blake2b of the edges) → bucketed Schur
+# partition (the reference's _SCHUR_PART_CACHE)
+_SCHUR_PART_CACHE: dict = {}
+
+# the float64 Schur LM damps its steps at max(λ, this): the reference's
+# floor (tpu_slam/solver/pose_graph.py:670-673), which its float32
+# preconditioner needs and which slows the LM on graphs with soft modes
+F64_SCHUR_LAMBDA_FLOOR = 1e-5
 
 
 def _sq_min_delta(convergence_delta: float) -> float:
@@ -196,12 +212,16 @@ def _host_direct_lm(poses, ei, ej, means, infos, free, iters, lam0,
     return p, cost0, c, good, it
 
 
-_UNPORTED = {
-    "f64_schur": "the device f64 Schur solve (host_direct_fallback=False) "
-                 "is not ported yet (ROADMAP queue 1, item 7)",
-    "schur": "the Schur-complement solve (use_schur) is not ported yet "
-             "(ROADMAP queue 1, item 7)",
-}
+def mixed_schur_delta(schur_part, poses, ei, ej, means, infos, mask, lam,
+                      free_mask):
+    """The float64-exact LM step δ (M, 3) of the graph damped at ``lam``
+    (the reference's contract). The reference reaches it with a float32
+    Schur factor preconditioning a float64 PCG, because its TPU has no
+    float64 factorization; the card has one, so the step is the direct
+    Schur solve in float64 (``solver/schur.schur_delta``)."""
+    f64 = lambda x: x.to(torch.float64)  # noqa: E731
+    return schur_delta(schur_part, f64(poses), ei, ej, f64(means),
+                       f64(infos), mask, lam, free_mask)
 
 
 def _bucket(n: int) -> int:
@@ -225,31 +245,32 @@ def _fused_shapes_fit(num_nodes: int, num_edges: int) -> bool:
 def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
            band_spec=lambda: None, mesh=None) -> str:
     """The solve route of a graph of ``num_nodes`` nodes and ``num_edges``
-    edges on ``device``: "dense", "pcg", "direct" or "host_f64", or the
-    name of an unported route ("f64_schur", "schur"); with a mesh
-    "mesh_dense" or "mesh_cg" (the reference's ``use_dense``, its mesh
-    skipping every other route: ``tpu_slam/solver/pose_graph.py:939``,
-    ``:964``, ``:1008``, ``:1033``).
-    ``band_spec()`` is called only for a graph above ``use_dense_below`` and
-    says whether it bands (None: it does not). Small graphs follow the
-    reference's TPU conditions for its fused kernel
-    (``tpu_slam/solver/pose_graph.py:1008-1030``) on ``cuda``; larger ones
-    its order (``:939-945``, ``:964-984``, then ``:1008-1038``)."""
+    edges on ``device``: "dense", "pcg", "direct", "host_f64",
+    "f64_schur" or "schur"; with a mesh "mesh_dense" or "mesh_cg" (the
+    reference's ``use_dense``, its mesh skipping every other route:
+    ``tpu_slam/solver/pose_graph.py:939``, ``:964``, ``:1008``,
+    ``:1033``). ``band_spec()`` is called only for a graph above
+    ``use_dense_below`` and says whether it bands (None: it does not).
+    The order is the reference's (``:939-945``, ``:964-984``,
+    ``:1008-1038``); small graphs meet its TPU conditions for its fused
+    kernel on ``cuda``, and Schur its partition test (``:1033-1038``)."""
     if mesh is not None:
         return "mesh_dense" if num_nodes <= cfg.use_dense_below else "mesh_cg"
-    if num_nodes <= cfg.use_dense_below:
-        kernel = (torch.device(device).type == "cuda"
-                  and cfg.use_fused_kernel and cfg.cg_restarts <= 1
-                  and not cfg.use_schur
-                  and _fused_shapes_fit(num_nodes, num_edges))
-        return "pcg" if kernel else "dense"
-    if cfg.use_direct and not cfg.use_schur and band_spec() is not None:
+    small = num_nodes <= cfg.use_dense_below
+    if (not small and cfg.use_direct and not cfg.use_schur
+            and band_spec() is not None):
         return "direct"
     if cfg.f64_schur_above > 0 and num_nodes >= cfg.f64_schur_above:
         return "host_f64" if cfg.host_direct_fallback else "f64_schur"
-    if cfg.use_schur:
+    if (small and torch.device(device).type == "cuda"
+            and cfg.use_fused_kernel and cfg.cg_restarts <= 1
+            and not cfg.use_schur
+            and _fused_shapes_fit(num_nodes, num_edges)):
+        return "pcg"
+    if (cfg.use_schur and num_nodes > 2 * cfg.schur_submaps
+            and num_nodes >= cfg.use_dense_below):
         return "schur"
-    return "pcg"
+    return "dense" if small else "pcg"
 
 
 class SolveStats(NamedTuple):
@@ -371,7 +392,9 @@ class PoseGraphSolver:
             return self._compute_direct(iters, self._band_spec())
         if route == "host_f64":
             return self._compute_host_f64(iters)
-        raise NotImplementedError(_UNPORTED[route])
+        if route == "schur":
+            return self._compute_schur(iters)
+        return self._compute_f64_schur(iters)
 
     def _edge_arrays(self):
         """(ei, ej, means, infos) of the edges, built once per edge set."""
@@ -438,6 +461,79 @@ class PoseGraphSolver:
             self.cfg.initial_lambda, float(self.cfg.convergence_delta))
         return PendingSolve(self, pack(torch.from_numpy(p.T.copy()), cost0,
                                        cost, good, it))
+
+    def _schur_partition(self, M: int):
+        """The bucketed Schur partition of the graph over ``M`` nodes,
+        cached by a blake2b digest of its edges (a ``hash()`` collision
+        would reuse a wrong partition)."""
+        ei, ej, _m, _i = self._edge_arrays()
+        hk = hashlib.blake2b(digest_size=16)
+        hk.update(ei.tobytes())
+        hk.update(ej.tobytes())
+        key = (M, self.cfg.schur_submaps, hk.digest())
+        part = _SCHUR_PART_CACHE.get(key)
+        if part is None:
+            part = bucket_partition(build_partition(
+                ei, ej, np.ones(len(ei), bool), M, self.cfg.schur_submaps))
+            if len(_SCHUR_PART_CACHE) > 64:
+                _SCHUR_PART_CACHE.clear()
+            _SCHUR_PART_CACHE[key] = part
+        return part
+
+    def _schur_lm(self, iters: int, dtype, step_of, sq_min_delta, lam_type):
+        """The LM with a Schur step, as the reference's LM program runs it:
+        the graph padded to its power-of-two node bucket (pad nodes fixed,
+        so they are gauge rows), on the solver's device in ``dtype``;
+        ``step_of(part, graph, p, lam)`` is the step. Returns the packed
+        result."""
+        n = self.num_nodes
+        M = _bucket(max(n, 2))
+        part = self._schur_partition(M)
+        ei, ej, means, infos = self._edge_arrays()
+        dev = self.device
+        poses = np.zeros((M, 3))
+        poses[:n] = np.asarray(self._poses)
+        free = torch.zeros(M, dtype=torch.bool, device=dev)
+        free[1:n] = True  # node 0 is the gauge (nFixed=1)
+        typed = dict(dtype=dtype, device=dev)
+        graph = (torch.as_tensor(ei, device=dev),
+                 torch.as_tensor(ej, device=dev),
+                 torch.as_tensor(means, **typed),
+                 torch.as_tensor(infos, **typed),
+                 torch.ones(len(ei), dtype=torch.bool, device=dev), free)
+        p, cost0, cost, good, it = lm_loop(
+            torch.as_tensor(poses, **typed),
+            lambda p: graph_cost(p, *graph[:4]),
+            lambda p, lam: step_of(part, graph, p, lam), wrap_headings,
+            self.cfg.initial_lambda, iters, sq_min_delta, lam_type)
+        return pack(p.T, cost0, cost, good, it)
+
+    def _compute_schur(self, iters: int) -> "PendingSolve":
+        """The float32 LM whose step is the Schur solve (``use_schur``)."""
+
+        def step(part, graph, p, lam):
+            ei, ej, means, infos, mask, free = graph
+            return schur_delta(part, p, ei, ej, means, infos, mask, lam, free)
+
+        return PendingSolve(self, self._schur_lm(
+            iters, torch.float32, step,
+            _sq_min_delta(self.cfg.convergence_delta), np.float32))
+
+    def _compute_f64_schur(self, iters: int) -> "PendingSolve":
+        """The float64 LM on the solver's device whose step is the direct
+        Schur solve (``host_direct_fallback=False``): λ floored at
+        ``F64_SCHUR_LAMBDA_FLOOR`` in the step, as the reference's caller
+        floors it, and ‖δ‖² stopped at ``convergence_delta`` itself. Its
+        packed result is float64."""
+
+        def step(part, graph, p, lam):
+            ei, ej, means, infos, mask, free = graph
+            return mixed_schur_delta(part, p, ei, ej, means, infos, mask,
+                                     max(lam, F64_SCHUR_LAMBDA_FLOOR), free)
+
+        return PendingSolve(self, self._schur_lm(
+            iters, torch.float64, step, float(self.cfg.convergence_delta),
+            np.float64))
 
     def _band_spec(self):
         """RCM band spec of the graph, None if it does not band."""
