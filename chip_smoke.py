@@ -127,6 +127,18 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      must give the device engine's map, int8 for int8, on the counted
      run's final state, both engines' ms beside the card's name and power
      limit;
+ 14a. the float64 solver (``phase_f64``; plain PyTorch, no kernel):
+     ``PoseGraphSolver(dtype=torch.float64)`` on the online Karto run's
+     final graph ("dense"), the mission's loop-closed graph from its
+     chain ("dense" at ``use_dense_below=2048``, a 3,168² float64 factor
+     a step; "cg" at ``cg_restarts`` 1 and 2; "schur" with
+     ``use_schur``) and bench_solver's 4,096-node ring ("cg"), each with
+     the counters zeroed first: the named route, a float64 result on
+     ``cuda``, no launch, poses within 1e-8 and cost within 1e-9
+     relative of the port's CPU run of the same route (1e-6 and 1e-8 for
+     "cg"), the final cost beside the float32 route's on the same graph
+     and the host f64 arm's optimum, and the solve ms (median of 3 runs;
+     the ring's of one);
  14b. the outdoor offline mission, with the launch counters zeroed
      first: benchmarks/bench_outdoor.py's 1-lap recipe (3,234 scans of
      360 beams, ``preset("karto_outdoor")``, no cut) through
@@ -213,7 +225,10 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      (bit-equal to the unsharded kernel), ``PoseGraphSolver(mesh)`` on the
      mission's loop-closed graph from its chain (the mesh CG route; poses
      within 5e-4 and cost within 1e-2 relative of ``pcg_lm.cu``; then one
-     gather of a CG matvec's edge terms, timed), ``offline_slam(mesh)`` on
+     gather of a CG matvec's edge terms, timed; then in float64:
+     "mesh_cg", a float64 result on ``cuda``, no launch, within 1e-6 of
+     phase 14a's one-device float64 "cg" solve, (a) and (b) bit-equal),
+     ``offline_slam(mesh)`` on
      the mission cut to its first round (the same loops, poses within 5e-4
      of the unsharded run) and whole (ATE ≤ 5 mm, the same loop count and
      the chain within 1e-5 of the unsharded run; the same loops and poses
@@ -3361,15 +3376,12 @@ def phase_schur(dev, res, pcg_base, ring_solves, host_f64) -> dict:
         (``host_direct_fallback=False``): poses within 5e-5 and cost within
         1e-6 relative of the host f64 arm's run in this call, the wall of
         each.
-    Returns the launches (none)."""
-    out = dict.fromkeys(_dispatch.LAUNCHES, 0)
+    Returns the mission graph's final cost on "schur"."""
 
     def counted(fn):
         _dispatch.reset_launches()
         r = fn()
         torch.cuda.synchronize()
-        for k, v in _dispatch.LAUNCHES.items():
-            out[k] += v
         return r, sum(_dispatch.LAUNCHES.values())
 
     ei, ej, means, infos = res.solver._edge_arrays()
@@ -3461,6 +3473,142 @@ def phase_schur(dev, res, pcg_base, ring_solves, host_f64) -> dict:
             and xgap <= SCHUR_F64_POSE_TOL and xrel <= SCHUR_F64_COST_RTOL):
         raise AssertionError("the device f64 Schur LM is off the reference's "
                              "run, or its exact steps off the host f64 arm")
+    return st.final_cost
+
+
+# --- the float64 solver -------------------------------------------------------
+
+F64_DIRECT_POSE_TOL = 1e-8  # m / rad: "dense" and "schur" against the CPU
+F64_DIRECT_COST_RTOL = 1e-9
+# "cg": the host's sum order can move a CG early-out by a step
+F64_CG_POSE_TOL = 1e-6
+F64_CG_COST_RTOL = 1e-8
+F64_MESH_POSE_TOL = 1e-6  # the mesh's float64 CG against one device's
+F64 = torch.float64
+
+
+def f64_cases(res, kslam, pcg_cost: float, ring_cost: float,
+              schur_cost: float) -> list:
+    """``phase_f64``'s solves at full width: (label, route, cfg, starting
+    poses, edges, the float32 route's name on that graph and its final
+    cost, None where the phase solves it, timed runs). Online Karto's
+    final graph (its mapper's poses at the end of the run), the mission's
+    loop-closed graph from its chain (dense at ``use_dense_below=2048``,
+    CG at ``cg_restarts`` 1 and 2, Schur), bench_solver's 4,096-node ring
+    (one timed run: the phase's budget)."""
+    kei, kej, kmeans, kinfos = kslam.solver._edge_arrays()
+    kgraph = (kslam.solver.get_poses(), list(zip(kei, kej, kmeans, kinfos)))
+    ei, ej, means, infos = res.solver._edge_arrays()
+    mgraph = (res.chain_poses, list(zip(ei, ej, means, infos)))
+    mcfg = res.solver.cfg
+    rep = dataclasses.replace
+    return [
+        ("karto final graph", "dense", kslam.solver.cfg, *kgraph,
+         "float32 dense", None, 3),
+        ("mission graph, use_dense_below=2048", "dense",
+         rep(mcfg, use_dense_below=2048), *mgraph, "pcg_lm.cu", pcg_cost, 3),
+        ("mission graph", "cg", mcfg, *mgraph, "pcg_lm.cu", pcg_cost, 3),
+        ("mission graph, cg_restarts=2", "cg", rep(mcfg, cg_restarts=2),
+         *mgraph, "pcg_lm.cu", pcg_cost, 3),
+        ("4,096-node ring", "cg", SolverConfig(), *bench_ring(4096),
+         "cr_stream.cu", ring_cost, 1),
+        ("mission graph, use_schur", "schur", rep(mcfg, use_schur=True),
+         *mgraph, "float32 schur", schur_cost, 3),
+    ]
+
+
+def f64_timed(solver, init, reps: int = 3) -> tuple:
+    """``reps`` solves from ``init``, the poses reset before each: (stats,
+    poses, LM iterations, packed dtype, packed device, launches) of the
+    first, run with the launch counters zeroed, and the median, min and
+    max ms of all."""
+
+    def solve():
+        for i, p in enumerate(init):
+            solver.set_node_pose(i, p)
+        t0 = time.perf_counter()
+        pending = solver.compute_async()
+        st = pending.harvest()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return st, pending._packed
+
+    walls = []
+    _dispatch.reset_launches()
+    st, packed = solve()
+    launched = sum(_dispatch.LAUNCHES.values())
+    poses = solver.get_poses()
+    for _ in range(reps - 1):
+        solve()
+    walls.sort()
+    return (st, poses, int(packed[3, 3]), packed.dtype, packed.device.type,
+            launched, (walls[len(walls) // 2], walls[0], walls[-1]))
+
+
+def phase_f64(dev, cases) -> dict:
+    """``PoseGraphSolver(dtype=torch.float64)`` on the card (plain PyTorch,
+    no kernel): each of ``f64_cases`` once with the counters zeroed (the
+    named route, a float64 result on ``cuda``, no launch), held to the
+    port's CPU run of the same route on the same graph (poses within 1e-8
+    and cost within 1e-9 relative for "dense" and "schur", 1e-6 and 1e-8
+    for "cg"; or both costs ≤ 1e-12 × the initial), its final cost beside
+    the float32 route's and the host f64 arm's optimum
+    (``_host_direct_lm``), its wall (the median of the counted run and
+    two more; the ring's of its one run). Returns {label: (poses,
+    stats)}."""
+    out, optima = {}, {}
+    for label, route, cfg, init, edges, f32_name, f32_cost, reps in cases:
+        card = solver_from_numpy(cfg, init, edges, dev, F64)
+        got = _route(card.num_nodes, card.num_edges, dev, cfg,
+                     card._band_spec, dtype=F64)
+        st, poses, iters, dt, kind, launched, (ms, lo, hi) = f64_timed(
+            card, init, reps)
+        host = solver_from_numpy(cfg, init, edges, "cpu", F64)
+        t0 = time.perf_counter()
+        hst = host.compute()
+        cpu_s = time.perf_counter() - t0
+        gap = float(pose_gap(torch.as_tensor(poses),
+                             torch.as_tensor(host.get_poses())).max())
+        rel = abs(st.final_cost - hst.final_cost) / abs(hst.final_cost)
+        # χ² as pcg_compare holds it: within the bar, or both ~0 (the
+        # ring's, where rounding is all that is left of the residuals)
+        both_zero = (max(st.final_cost, hst.final_cost)
+                     <= 1e-12 * hst.initial_cost)
+        if f32_cost is None:
+            f32 = solver_from_numpy(cfg, init, edges, dev)
+            r32 = _route(f32.num_nodes, f32.num_edges, dev, cfg,
+                         f32._band_spec)
+            f32_name += f" ({r32} route)"
+            f32_cost = f32.compute().final_cost
+        if id(edges) not in optima:  # once a graph
+            t0 = time.perf_counter()
+            _p, _c0, *optimum = pose_graph._host_direct_lm(
+                np.asarray(init), *card._edge_arrays(),
+                np.arange(len(init)) > 0, cfg.max_iterations,
+                cfg.initial_lambda, float(cfg.convergence_delta))
+            optima[id(edges)] = (*optimum, time.perf_counter() - t0)
+        opt, opt_good, opt_it, opt_s = optima[id(edges)]
+        direct = route in ("dense", "schur")
+        pose_tol = F64_DIRECT_POSE_TOL if direct else F64_CG_POSE_TOL
+        cost_tol = F64_DIRECT_COST_RTOL if direct else F64_CG_COST_RTOL
+        print(f"f64 {label}: nodes={card.num_nodes} edges={card.num_edges} "
+              f"route {got} ({dt} on {kind}); cost {st.initial_cost:.10g} -> "
+              f"{st.final_cost:.10g} ({st.iterations} good of {iters} LM "
+              f"iterations); {f32_name} {f32_cost:.10g}; host f64 arm "
+              f"{opt:.10g} ({opt_good} good of {opt_it}, {opt_s:.3f} s); "
+              f"against the CPU's run of the route: poses max|d| {gap:.3e} "
+              f"(bar {pose_tol}) cost rel {rel:.2e} (bar {cost_tol}; CPU "
+              f"{cpu_s:.2f} s); solve ms median {ms:.3f} of {reps} (min "
+              f"{lo:.3f} max {hi:.3f}); kernel launches {launched}",
+              flush=True)
+        if not (got == route and dt == F64 and kind == "cuda"
+                and launched == 0 and gap <= pose_tol
+                and (rel <= cost_tol or both_zero)
+                and np.all(np.isfinite(poses))
+                and st.final_cost < st.initial_cost):
+            raise AssertionError(f"the float64 solve of the {label} failed "
+                                 "its bars")
+        out[label] = (poses, tuple(st))
     return out
 
 
@@ -3879,7 +4027,7 @@ def scan_fields(scans) -> tuple:
     return tuple(getattr(scans, f).cpu().numpy() for f in SCAN_FIELDS)
 
 
-def mesh_inputs(dev, mission, karto, hector) -> tuple[dict, dict]:
+def mesh_inputs(dev, mission, karto, hector, f64_cg) -> tuple[dict, dict]:
     """The mesh phase's inputs (numpy and configs, for the ranks) and the
     results they are held to: the 512-pair bench PL-ICP batch as a store
     of its 1,024 scans with the unsharded packed matcher's rows (the
@@ -3897,7 +4045,9 @@ def mesh_inputs(dev, mission, karto, hector) -> tuple[dict, dict]:
     mesh sums every edge's terms in edge order, so the ranks of either
     case must give its loops and its poses.
     ``mission`` = (cfg, scans, odom, gt, result), ``karto`` = (cfg, scans,
-    odom, gt, mapper, accepted), ``hector`` = (cfg, scans, gt)."""
+    odom, gt, mapper, accepted), ``hector`` = (cfg, scans, gt), ``f64_cg``
+    = (poses, stats) of ``phase_f64``'s one-device float64 "cg" solve of
+    the mission graph, which the ranks' float64 mesh solve is held to."""
     cfg, args, g = plicp_bench_batch(dev)
     B = g.shape[0]
     store = torch.cat([args[0], args[2]]).contiguous()
@@ -3934,7 +4084,7 @@ def mesh_inputs(dev, mission, karto, hector) -> tuple[dict, dict]:
         "schur": {D: schur_delta(schur_part(inputs["graph"], D), *schur_args(
             inputs["graph"], dev)).cpu().numpy() for _l, D, _b in MESH_CASES},
         "matcher": packed.cpu().numpy(),
-        "pgs": (single.get_poses(), tuple(pgs_stats)),
+        "pgs": (single.get_poses(), tuple(pgs_stats)), "pgs64": f64_cg,
         "offline": _offline_out(res), "offline1": _offline_out(res1),
         "offline_mesh": _offline_out(res_mesh),
         "karto": {"accepted": list(kacc), "closures": kslam.loop_closures,
@@ -3979,8 +4129,9 @@ def mesh_rank(rank: int, D: int, backend: str, device: str, port: int,
     builds ``make_mesh(D)`` on ``device`` and drives the port's mesh
     forms, each with the launch and collective counters zeroed first: the
     sharded packed matcher, ``PoseGraphSolver(mesh)`` (then a timed gather
-    of a CG matvec's edge terms), ``offline_slam(mesh)`` (the mission's first
-    round, then the whole mission), ``KartoSLAM(mesh)`` and
+    of a CG matvec's edge terms), the same solver in float64,
+    ``offline_slam(mesh)`` (the mission's first round, then the whole
+    mission), ``KartoSLAM(mesh)`` and
     ``HectorSLAM(mesh)``; it pickles what it got, its walls and counts to
     ``MESH_DIR``."""
     import pickle
@@ -4049,6 +4200,18 @@ def mesh_rank(rank: int, D: int, backend: str, device: str, port: int,
     sync()
     out["gather_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_GATHER_REPS
     out["gather_floats"] = x.numel() * D
+    pgs64 = PoseGraphSolver(gph["cfg"], mesh=mesh, dtype=torch.float64)
+    pgs64.add_nodes(range(len(gph["init"])), gph["init"])
+    pgs64.add_constraints(gph["ei"], gph["ej"], gph["means"],
+                          informations=gph["infos"])
+    out["pgs64_route"] = _route(pgs64.num_nodes, pgs64.num_edges, dev,
+                                pgs64.cfg, pgs64._band_spec, mesh,
+                                torch.float64)
+    pending = counted("pgs64", pgs64.compute_async)
+    out["pgs64_packed"] = (str(pending._packed.dtype),
+                           pending._packed.device.type)
+    out["pgs64_stats"] = tuple(pending.harvest())
+    out["pgs64"] = pgs64.get_poses()
     step = make_distributed_schur_delta(mesh, schur_part(gph, D))
     out["schur"] = counted("schur", lambda: step(*schur_args(gph, dev))
                            ).cpu().numpy()
@@ -4118,7 +4281,7 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
     ranks, to the bars above; prints the case's line."""
     o = outs[0]
     for r, other in enumerate(outs[1:], 1):
-        for key in ("matcher", "pgs", "schur"):
+        for key in ("matcher", "pgs", "pgs64", "schur"):
             if not np.array_equal(other[key], o[key]):
                 raise AssertionError(f"mesh ({label}): rank {r}'s {key} "
                                      "differs from rank 0's")
@@ -4151,6 +4314,9 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
                  else float("inf"))
     hec_ate = float(ate_rmse(o["hector"]["est"], refs["hector_gt"],
                              align=False))
+    p64, s64 = refs["pgs64"]
+    pgs64_gap = _max_gap(o["pgs64"], p64)
+    pgs64_rel = abs(o["pgs64_stats"][2] - s64[2]) / abs(s64[2])
     sref = refs["schur"][D]
     schur_gap = _max_gap(o["schur"], sref)
     schur_bar = MESH_SCHUR_TOL * max(float(np.abs(sref).max()), 1.0)
@@ -4168,7 +4334,14 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
           f"collectives {coll} (a matvec's gather of {o['gather_floats']} "
           f"floats {o['gather_ms']:.4f} ms), poses max|d| {pgs_gap:.3e} (bar "
           f"{MESH_PGS_POSE_TOL}) cost {o['pgs_stats'][2]:.6g} against "
-          f"{pstats[2]:.6g} (rel {cost_rel:.2e}); offline first round: the same "
+          f"{pstats[2]:.6g} (rel {cost_rel:.2e}); float64 solve route "
+          f"{o['pgs64_route']} ({' on '.join(o['pgs64_packed'])}) "
+          f"{o['pgs64_stats'][0]} good LM iterations, "
+          f"{o['walls']['pgs64']:.2f} s, launches "
+          f"{sum(o['launches']['pgs64'].values())}, poses max|d| "
+          f"{pgs64_gap:.3e} from one device's float64 \"cg\" (bar "
+          f"{F64_MESH_POSE_TOL}) cost {o['pgs64_stats'][2]:.10g} against "
+          f"{s64[2]:.10g} (rel {pgs64_rel:.2e}); offline first round: the same "
           f"{off1['loops']} loops {off1_same}, poses max|d| {off1_gap:.3e} "
           f"(bar {MESH_POSE_TOL}); offline ATE {off_ate:.5f} m (unsharded "
           f"{ref_ate:.5f}) loops {off['loops']} (unsharded {roff['loops']}; "
@@ -4190,6 +4363,11 @@ def mesh_case_check(label: str, D: int, backend: str, outs, refs) -> None:
          "mesh CG route"),
         (pgs_gap <= MESH_PGS_POSE_TOL and cost_rel <= MESH_PGS_COST_RTOL,
          "PoseGraphSolver(mesh) is off the single-device solve"),
+        (o["pgs64_route"] == "mesh_cg"
+         and o["pgs64_packed"] == ("torch.float64", "cuda")
+         and not any(o["launches"]["pgs64"].values())
+         and pgs64_gap <= F64_MESH_POSE_TOL,
+         "PoseGraphSolver(mesh, float64) is off the one-device float64 CG"),
         (off1_same and off1_gap <= MESH_POSE_TOL,
          "offline_slam(mesh) is off the unsharded mission's first round"),
         (off_ate <= MISSION_ATE_MAX and off["loops"] == roff["loops"]
@@ -4215,17 +4393,17 @@ def phase_mesh(dev, inputs: dict, refs: dict) -> dict:
     """The mesh forms on the card in two cases: (a) one rank over NCCL,
     (b) two ranks sharing the card over gloo. Each case is a correctness
     run, not a scaling measurement. Every rank must give the same results;
-    rank 0 is held to the single-device results (``mesh_case_check``) and
-    the Hector runs of the two cases to each other (trajectory within
-    ``MESH_HECTOR_TOL``, maps equal). Returns the launches of every rank
-    of both cases."""
+    rank 0 is held to the single-device results (``mesh_case_check``),
+    the float64 solves of the two cases to each other (bit-equal) and the
+    Hector runs to each other (trajectory within ``MESH_HECTOR_TOL``, maps
+    equal). Returns the launches of every rank of both cases."""
     import pickle
 
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     path = MESH_DIR / "inputs.pkl"
     path.write_bytes(pickle.dumps(inputs))
     total = dict.fromkeys(_dispatch.LAUNCHES, 0)
-    hector = {}
+    hector, pgs64 = {}, {}
     for label, D, backend in MESH_CASES:
         t0 = time.perf_counter()
         outs = run_mesh_case(label, D, backend, dev, path)
@@ -4237,6 +4415,14 @@ def phase_mesh(dev, inputs: dict, refs: dict) -> dict:
                 for k, v in run.items():
                     total[k] += v
         hector[label] = outs[0]["hector"]
+        pgs64[label] = (outs[0]["pgs64"], outs[0]["pgs64_stats"])
+    f64_same = (pgs64["a"][0].tobytes() == pgs64["b"][0].tobytes()
+                and pgs64["a"][1] == pgs64["b"][1])
+    print(f"mesh float64 solve (a) against (b): bit-equal {f64_same}",
+          flush=True)
+    if not f64_same:
+        raise AssertionError("PoseGraphSolver(mesh, float64) differs between "
+                             "one rank and two")
     a, b = hector["a"], hector["b"]
     gap = _max_gap(a["est"], b["est"])
     maps_eq = all(np.array_equal(x, y) for x, y in zip(a["maps"], b["maps"]))
@@ -4288,7 +4474,7 @@ def main() -> None:
     phase_mission_rate(cfg, scans, odom)
     phase_profile(cfg, scans, odom)
     clock("mission")
-    phase_schur(dev, res, pcg_base, ring_solves, host_f64)
+    schur_cost = phase_schur(dev, res, pcg_base, ring_solves, host_f64)
     clock("Schur routes")
     hector = phase_hector(dev)
     phase_hector_edges(dev)
@@ -4304,6 +4490,9 @@ def main() -> None:
     clock("online Karto")
     phase_native(dev, kslam, smi)
     clock("native library")
+    f64 = phase_f64(dev, f64_cases(res, kslam, float(pcg_base[3, 1]),
+                                   ring_solves[4096][1], schur_cost))
+    clock("float64 solver")
     outdoor_launches = phase_outdoor_main(dev)
     clock("outdoor mission")
     online_launches = phase_outdoor_online(dev)
@@ -4325,7 +4514,7 @@ def main() -> None:
     mesh_launches = phase_mesh(dev, *mesh_inputs(
         dev, (cfg, scans, odom, gt, res),
         (kcfg, kscans, kodom, kgt, kslam, kacc),
-        hector_seq(HECTOR_SCANS, dev)))
+        hector_seq(HECTOR_SCANS, dev), f64["mission graph"]))
     clock("multi-device layer")
     kernels = [
         {"name": "plicp_fused", "route": "cuda",

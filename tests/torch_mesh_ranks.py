@@ -230,18 +230,22 @@ def job_training_step(mesh, cfg, args):
     return {"poses": poses.numpy(), "errors": errs.numpy()}
 
 
-def job_pose_graph(mesh, cfgs, init, edges, info, sharded=True):
-    """PoseGraphSolver(mesh) on one graph under each solver config:
-    (poses, stats, route, collectives)."""
+def job_pose_graph(mesh, cfgs, init, edges, info, sharded=True,
+                   dtype="float32"):
+    """PoseGraphSolver(mesh) in ``dtype`` (torch's name) on one graph under
+    each solver config: (poses, stats, route, collectives)."""
+    import torch
+
     if not sharded:
         mesh = None
     from tpu_slam_torch.parallel import mesh as pm
     from tpu_slam_torch.solver.pose_graph import PoseGraphSolver, _route
 
+    dt = getattr(torch, dtype)
     out = []
     for cfg in cfgs:
-        s = (PoseGraphSolver(cfg, mesh=mesh) if mesh is not None
-             else PoseGraphSolver(cfg, device="cpu"))
+        s = (PoseGraphSolver(cfg, mesh=mesh, dtype=dt) if mesh is not None
+             else PoseGraphSolver(cfg, device="cpu", dtype=dt))
         s.add_nodes(range(len(init)), init)
         for i, j, m in edges:
             s.add_constraint(i, j, m, information=info)
@@ -249,7 +253,7 @@ def job_pose_graph(mesh, cfgs, init, edges, info, sharded=True):
         stats = s.compute()
         out.append((s.get_poses(), tuple(stats),
                     _route(s.num_nodes, s.num_edges, s.device, cfg,
-                           s._band_spec, mesh),
+                           s._band_spec, mesh, dt),
                     dict(pm.COLLECTIVES)))
     return out
 

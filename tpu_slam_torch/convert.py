@@ -46,12 +46,13 @@ def scan_from_numpy(ranges, valid, angles, stamp, time_increment,
     )
 
 
-def solver_from_numpy(cfg: SolverConfig, poses, edges,
-                      device=DEFAULT_DEVICE) -> PoseGraphSolver:
-    """A port ``PoseGraphSolver`` holding the same graph: ``poses`` (M, 3)
-    and ``edges`` as (i, j, mean (3,), information (3, 3)) with dense node
-    indices, the layout of the JAX solver's ``_poses`` and ``_edges``."""
-    s = PoseGraphSolver(cfg, device=device)
+def solver_from_numpy(cfg: SolverConfig, poses, edges, device=DEFAULT_DEVICE,
+                      dtype=torch.float32) -> PoseGraphSolver:
+    """A port ``PoseGraphSolver`` in ``dtype`` holding the same graph:
+    ``poses`` (M, 3) and ``edges`` as (i, j, mean (3,), information (3, 3))
+    with dense node indices, the layout of the JAX solver's ``_poses`` and
+    ``_edges``."""
+    s = PoseGraphSolver(cfg, device=device, dtype=dtype)
     poses = np.asarray(poses, np.float64)
     s.add_nodes(range(len(poses)), poses)
     if len(edges):

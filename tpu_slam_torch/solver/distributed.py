@@ -29,61 +29,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from tpu_slam_torch.parallel.mesh import Mesh, all_gather_rows, block
 from tpu_slam_torch.solver.lm import (
-    damped, dense_solve, lm_loop, norm_angle, pack, wrap_headings,
+    _mm, _mv, cg_solve, dense_solve, lam_type, lm_loop, norm_angle, pack,
+    wrap_headings,
 )
-
-# masked CG steps between two host reads of the stop test (the
-# reference's CG_UNROLL): a frozen step changes nothing, so the result is
-# that of a test after every step
-CG_UNROLL = 4
-
-
-def inv3x3(A):
-    """Closed-form batched 3×3 inverse (adjugate over determinant)."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    co_a = e * i - f * h
-    co_b = -(d * i - f * g)
-    co_c = d * h - e * g
-    det = a * co_a + b * co_b + c * co_c
-    row0 = torch.stack([co_a, -(b * i - c * h), b * f - c * e], -1)
-    row1 = torch.stack([co_b, a * i - c * g, -(a * f - c * d)], -1)
-    row2 = torch.stack([co_c, -(a * h - b * g), a * e - b * d], -1)
-    return torch.stack([row0, row1, row2], -2) * (1.0 / det)[..., None, None]
-
-
-# 3×3 block algebra written out: three products summed in index order, so
-# that a block does not depend on how many share the call
-
-
-def _mm(A, B):
-    """A @ B for (..., 3, 3) blocks."""
-    out = A[..., :, 0:1] * B[..., 0:1, :]
-    for k in (1, 2):
-        out = out + A[..., :, k:k + 1] * B[..., k:k + 1, :]
-    return out
-
-
-def _mv(A, v):
-    """A v for (..., 3, 3) blocks and (..., 3) vectors."""
-    out = A[..., :, 0] * v[..., 0:1]
-    for k in (1, 2):
-        out = out + A[..., :, k] * v[..., k:k + 1]
-    return out
-
-
-def _mtv(A, v):
-    """Aᵀ v."""
-    out = A[..., 0, :] * v[..., 0:1]
-    for k in (1, 2):
-        out = out + A[..., k, :] * v[..., k:k + 1]
-    return out
 
 
 class EdgeShard(NamedTuple):
@@ -189,58 +141,17 @@ def normal_equations(mesh: Mesh, poses, sh: EdgeShard, *, dense: bool):
     return Hd, (g[:, 24:33].reshape(-1, 3, 3) if dense else Hij), b
 
 
-def off_diagonal(mesh: Mesh, sh: EdgeShard, Hij):
-    """x ↦ the off-diagonal blocks' product with x (M, 3): the rank's
-    edges' shares, one gather, summed in edge order."""
+def edge_sum(mesh: Mesh, table):
+    """The mesh's ``psum_axis`` of ``lm.cg_matvec``: (rows_i, rows_j) of
+    the rank's edges (E/D, k) ↦ each node's sum of every rank's (M, k),
+    from one gather, in edge order (``table``: the global slot table)."""
 
-    def f(x):
-        y = torch.cat([_mv(Hij, x[sh.ej]), _mtv(Hij, x[sh.ei])], 1)
-        g = all_gather_rows(y, mesh)
-        return segment_sum(g[:, :3], g[:, 3:], sh.table)
+    def f(rows_i, rows_j):
+        k = rows_i.shape[1]
+        g = all_gather_rows(torch.cat([rows_i, rows_j], 1), mesh)
+        return segment_sum(g[:, :k], g[:, k:], table)
 
     return f
-
-
-def cg_solve(Hd, b, lam, free_mask, off_diag, iters: int, tol: float,
-             restarts: int = 1):
-    """Block-Jacobi preconditioned CG on H δ = −b (the reference's
-    ``cg_solve``): at most ``iters`` steps a run, stopping once
-    ‖r‖² ≤ tol·‖b‖²; ``restarts`` runs, each from the true residual of the
-    solution so far. ``Hd`` and ``b`` are the summed ones, ``off_diag(x)``
-    the summed off-diagonal product."""
-    dt = Hd.dtype
-    eye3 = torch.eye(3, dtype=dt, device=Hd.device)
-    Hdd = damped(Hd, lam)
-    fm = free_mask.to(dt)[:, None]
-    Minv = inv3x3(Hdd * fm[..., None] + (1.0 - fm[..., None]) * eye3)
-    bb = -b * fm
-    stop2 = max(float(tol), 0.0) * torch.sum(bb * bb)
-
-    def mv(v):
-        v = v * fm
-        return (_mv(Hdd, v) + off_diag(v)) * fm + v * (1.0 - fm)
-
-    x = torch.zeros_like(bb)
-    for _ in range(max(int(restarts), 1)):
-        r = bb - mv(x)
-        z = _mv(Minv, r)
-        p, rz = z, torch.sum(r * z)
-        it = torch.zeros((), dtype=torch.int64, device=bb.device)
-        while bool((it < iters) & (torch.sum(r * r) > stop2)):
-            for _ in range(CG_UNROLL):
-                live = (torch.sum(r * r) > stop2) & (it < iters)
-                Ap = mv(p)
-                pAp = torch.sum(p * Ap)
-                alpha = rz / torch.where(pAp != 0.0, pAp, torch.ones_like(pAp))
-                x = x + live.to(dt) * alpha * p
-                r = torch.where(live, r - alpha * Ap, r)
-                z = torch.where(live, _mv(Minv, r), z)
-                rz_new = torch.sum(r * z)
-                beta = rz_new / torch.where(rz != 0.0, rz, torch.ones_like(rz))
-                p = torch.where(live, z + beta * p, p)
-                rz = torch.where(live, rz_new, rz)
-                it = it + live.to(torch.int64)
-    return x
 
 
 def make_distributed_lm_delta(mesh: Mesh, n_nodes: int):
@@ -265,8 +176,8 @@ def make_distributed_cg_delta(mesh: Mesh, n_nodes: int, cg_iters: int):
     def step(poses, ei, ej, means, infos, mask, lam, free_mask):
         sh = shard_graph(mesh, ei, ej, means, infos, mask, n_nodes)
         Hd, Hij, b = normal_equations(mesh, poses, sh, dense=False)
-        return cg_solve(Hd, b, lam, free_mask, off_diagonal(mesh, sh, Hij),
-                        cg_iters, 0.0)
+        return cg_solve(Hd, Hij, sh.ei, sh.ej, b, lam, free_mask, cg_iters,
+                        0.0, edge_sum(mesh, sh.table))
 
     return step
 
@@ -276,20 +187,25 @@ def mesh_lm(mesh: Mesh, poses, ei, ej, means, infos, mask, free_mask, lam0,
             cg_restarts: int, sq_min_delta: float) -> torch.Tensor:
     """The whole doSPA LM with the edges sharded (the reference's
     ``_lm_loop_program`` under ``psum_axis``): each step dense or CG as
-    above, each cost from one gather. Takes the global graph (E a multiple
-    of D); returns the packed (8, max(M, 4)) result of ``solver/lm.pack``."""
+    above, each cost from one gather, λ in the type of ``poses``. Takes the
+    global graph (E a multiple of D); returns the packed (8, max(M, 4))
+    result of ``solver/lm.pack``."""
     sh = shard_graph(mesh, ei, ej, means, infos, mask, poses.shape[0])
+    # the cost sums the real edges' terms alone: the same vector, so the
+    # same bits, whatever padding D asks for
+    real = torch.nonzero(mask).squeeze(1)
 
     def cost_of(p):
-        return torch.sum(all_gather_rows(edge_costs(p, sh), mesh))
+        return torch.sum(all_gather_rows(edge_costs(p, sh), mesh)[real])
 
     def step_of(p, lam):
         Hd, Hij, b = normal_equations(mesh, p, sh, dense=use_dense)
         if use_dense:
             return dense_solve(Hd, Hij, sh.gi, sh.gj, b, lam, free_mask)
-        return cg_solve(Hd, b, lam, free_mask, off_diagonal(mesh, sh, Hij),
-                        cg_iters, cg_tol, cg_restarts)
+        return cg_solve(Hd, Hij, sh.ei, sh.ej, b, lam, free_mask, cg_iters,
+                        cg_tol, edge_sum(mesh, sh.table), cg_restarts)
 
     p, cost0, cost, good, it = lm_loop(poses, cost_of, step_of, wrap_headings,
-                                       np.float32(lam0), iters, sq_min_delta)
+                                       lam0, iters, sq_min_delta,
+                                       lam_type(poses.dtype))
     return pack(p.T, cost0, cost, good, it)

@@ -12,6 +12,10 @@ weighted by the information matrix Ω = covariance⁻¹.
 one (``laminc`` then doubles); a step is accepted when it lowers the cost;
 the loop stops once ‖δ‖² < ``sq_min_delta`` or after ``iters`` steps. λ is
 kept in float32, as the kernels keep it (in float64 on a float64 solve).
+
+The block-Jacobi CG step (``cg_matvec``, ``cg_solve``: the reference's,
+``tpu_slam/solver/pose_graph.py:312-407``) lives here too: the one-device
+LM and the mesh LM (``solver/distributed``) both call it.
 """
 
 from __future__ import annotations
@@ -39,6 +43,54 @@ def _rot_t(th):
     """R(θ)ᵀ as (..., 2, 2)."""
     c, s = torch.cos(th), torch.sin(th)
     return torch.stack([torch.stack([c, s], -1), torch.stack([-s, c], -1)], -2)
+
+
+def lam_type(dtype):
+    """The numpy scalar type λ is kept in for a solve in ``dtype``."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def inv3x3(A):
+    """Closed-form batched 3×3 inverse (adjugate over determinant)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    co_a = e * i - f * h
+    co_b = -(d * i - f * g)
+    co_c = d * h - e * g
+    det = a * co_a + b * co_b + c * co_c
+    row0 = torch.stack([co_a, -(b * i - c * h), b * f - c * e], -1)
+    row1 = torch.stack([co_b, a * i - c * g, -(a * f - c * d)], -1)
+    row2 = torch.stack([co_c, -(a * h - b * g), a * e - b * d], -1)
+    return torch.stack([row0, row1, row2], -2) * (1.0 / det)[..., None, None]
+
+
+# 3×3 block algebra written out: three products summed in index order, so
+# that a block does not depend on how many share the call
+
+
+def _mm(A, B):
+    """A @ B for (..., 3, 3) blocks."""
+    out = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in (1, 2):
+        out = out + A[..., :, k:k + 1] * B[..., k:k + 1, :]
+    return out
+
+
+def _mv(A, v):
+    """A v for (..., 3, 3) blocks and (..., 3) vectors."""
+    out = A[..., :, 0] * v[..., 0:1]
+    for k in (1, 2):
+        out = out + A[..., :, k] * v[..., k:k + 1]
+    return out
+
+
+def _mtv(A, v):
+    """Aᵀ v."""
+    out = A[..., 0, :] * v[..., 0:1]
+    for k in (1, 2):
+        out = out + A[..., k, :] * v[..., k:k + 1]
+    return out
 
 
 def edge_residuals(poses, ei, ej, means):
@@ -136,6 +188,81 @@ def dense_solve(Hd, Hij, ei, ej, b, lam, free_mask):
     """The dense LM step: assemble the (3M, 3M) system and solve it."""
     return finalize_dense_solve(assemble_dense(Hd, Hij, ei, ej), b, lam,
                                 free_mask)
+
+
+# masked CG steps between two host reads of the stop test (the
+# reference's CG_UNROLL): a frozen step changes nothing, so the result is
+# that of a test after every step
+CG_UNROLL = 4
+
+
+def cg_matvec(x, Hd_damped, Hij, ei, ej, free_mask, psum_axis=None):
+    """y = H x with H in block form (the reference's ``cg_matvec``): the
+    damped diagonal blocks, each edge's block Hij both ways, the rows of
+    non-free nodes the identity. On one device the edges' products are
+    summed with ``index_add_``. On a mesh ``Hij``, ``ei`` and ``ej`` are
+    the rank's block of the edges, and ``psum_axis(rows_i, rows_j)`` sums
+    every rank's products node by node (the reference's psum over its
+    mesh axis; ``solver/distributed.edge_sum``)."""
+    fm = free_mask.to(x.dtype)[:, None]
+    return _matvec(x, Hd_damped, Hij, ei, ej, fm, 1.0 - fm, psum_axis)
+
+
+def _matvec(x, Hd_damped, Hij, ei, ej, fm, fixed, psum_axis):
+    """``cg_matvec`` with the free mask ``fm`` (M, 1) and ``fixed`` = 1 − fm
+    in the type of ``x``."""
+    x = x * fm
+    yi, yj = _mv(Hij, x[ej]), _mtv(Hij, x[ei])
+    if psum_axis is None:
+        y_off = torch.zeros_like(x).index_add_(0, ei, yi).index_add_(0, ej, yj)
+    else:
+        y_off = psum_axis(yi, yj)
+    return (_mv(Hd_damped, x) + y_off) * fm + x * fixed
+
+
+def cg_solve(Hd, Hij, ei, ej, b, lam, free_mask, iters, tol, psum_axis=None,
+             restarts=1):
+    """Block-Jacobi preconditioned CG on H δ = −b (the reference's
+    ``cg_solve``), in the type of the blocks: the diagonal blocks with a
+    1e-12 jitter and × (1 + λ) on their diagonal, their closed-form 3×3
+    inverses the preconditioner. At most ``iters`` steps a run, stopping
+    once ‖r‖² ≤ tol·‖b‖² (tol ≤ 0: never); ``restarts`` runs, each from the
+    true residual of the solution so far. With ``psum_axis`` (see
+    ``cg_matvec``) ``Hd`` and ``b`` are the summed ones."""
+    dt = Hd.dtype
+    eye3 = torch.eye(3, dtype=dt, device=Hd.device)
+    Hdd = damped(Hd, lam)
+    fm = free_mask.to(dt)[:, None]
+    fixed = 1.0 - fm
+    Minv = inv3x3(Hdd * fm[..., None] + fixed[..., None] * eye3)
+    bb = -b * fm
+    stop2 = max(float(tol), 0.0) * torch.sum(bb * bb)
+    one = torch.ones((), dtype=dt, device=bb.device)
+
+    def mv(v):
+        return _matvec(v, Hdd, Hij, ei, ej, fm, fixed, psum_axis)
+
+    x = torch.zeros_like(bb)
+    for _ in range(max(int(restarts), 1)):
+        r = bb - mv(x)
+        z = _mv(Minv, r)
+        p, rz = z, torch.sum(r * z)
+        it = torch.zeros((), dtype=torch.int64, device=bb.device)
+        while bool((it < iters) & (torch.sum(r * r) > stop2)):
+            for _ in range(CG_UNROLL):
+                live = (torch.sum(r * r) > stop2) & (it < iters)
+                Ap = mv(p)
+                pAp = torch.sum(p * Ap)
+                alpha = rz / torch.where(pAp != 0.0, pAp, one)
+                x = x + live.to(dt) * alpha * p
+                r = torch.where(live, r - alpha * Ap, r)
+                z = torch.where(live, _mv(Minv, r), z)
+                rz_new = torch.sum(r * z)
+                beta = rz_new / torch.where(rz != 0.0, rz, one)
+                p = torch.where(live, z + beta * p, p)
+                rz = torch.where(live, rz_new, rz)
+                it = it + live.to(torch.int64)
+    return x
 
 
 def wrap_headings(poses):

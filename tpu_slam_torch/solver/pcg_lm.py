@@ -31,6 +31,7 @@ from tpu_slam_torch._build import (
     SMEM_STATIC_RESERVE,
 )
 from tpu_slam_torch.solver.lm import (
+    damped,
     graph_cost,
     lm_loop,
     norm_angle,
@@ -196,10 +197,8 @@ def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol, restarts=1):
     solution so far and a fresh Krylov space, all against the first
     run's stopping threshold (``cg_solve(restarts=)``)."""
     eye3 = torch.eye(3, dtype=Hd.dtype, device=Hd.device)
-    one_lam = float(np.float32(1.0) + lam)
     fm3 = fm[:, None, None]
-    D = (Hd + 1e-12 * eye3) * torch.where(eye3 > 0, one_lam, 1.0)
-    D = D * fm3 + (1.0 - fm3) * eye3
+    D = damped(Hd, lam) * fm3 + (1.0 - fm3) * eye3
     Minv = _inv3_cofactor(D)
     fmc = fm[:, None]
 

@@ -2,8 +2,16 @@
 ``tpu_slam/solver/pose_graph.py``.
 
 The residual model, the normal equations and the LM schedule are doSPA's
-(``solver/lm.py``); the loop stops once ‖δ‖² is under the float32-floored
-``convergence_delta``.
+(``solver/lm.py``); the loop stops once ‖δ‖² is under ``convergence_delta``,
+floored at 1e-8 in float32.
+
+The solver runs in float32 (the default) or, with ``dtype=torch.float64``,
+in float64 throughout (the reference's ``dtype=jnp.float64``: its own
+float64 oracle). A float64 solver takes none of the float32-only routes
+(the kernels, the host f64 arm, "f64_schur"): it runs the reference's XLA
+LM program, dense ("dense"), block-Jacobi CG ("cg", ``cg_solve``) or, with
+``use_schur``, the float64 Schur step at λ floored to
+``F64_SCHUR_LAMBDA_FLOOR`` ("schur"); on a mesh "mesh_dense" or "mesh_cg".
 
 Routing (``_route``) follows the reference's on its TPU, in its order:
   * a graph above ``use_dense_below`` nodes that bands under RCM
@@ -29,7 +37,7 @@ Routing (``_route``) follows the reference's on its TPU, in its order:
     the reference's route off the TPU), else the PCG LM, with
     ``cg_restarts`` runs of CG a step (the reference's TPU sends
     ``cg_restarts > 1`` to its XLA LM program, the same block-Jacobi PCG
-    LM as its fused kernel).
+    LM as its fused kernel); in float64 the reference's XLA CG LM ("cg").
 With a mesh every graph takes the edge-sharded LM of
 ``solver/distributed.mesh_lm``: dense up to ``use_dense_below`` nodes
 ("mesh_dense"), CG above ("mesh_cg", with ``cg_restarts`` and
@@ -37,8 +45,8 @@ With a mesh every graph takes the edge-sharded LM of
 the host f64 arm, the fused kernel and Schur.
 The kernel routes launch their CUDA kernel on ``cuda`` and run its plain
 version on ``cpu``; the host arm runs on the host on either device; the
-dense and Schur routes are plain PyTorch on the solver's device (the
-reference's are XLA programs) and launch no kernel.
+dense, CG, Schur and mesh routes are plain PyTorch on the solver's device
+(the reference's are XLA programs) and launch no kernel.
 """
 
 from __future__ import annotations
@@ -57,10 +65,14 @@ from tpu_slam_torch.solver.cr_lm import K_MAX, fused_cr_lm
 from tpu_slam_torch.solver.cr_stream import streamed_cr_lm
 from tpu_slam_torch.solver.distributed import mesh_lm
 from tpu_slam_torch.solver.lm import (  # noqa: F401  (the reference's names)
+    cg_matvec,
+    cg_solve,
     dense_solve,
     edge_jacobians,
     edge_residuals,
     graph_cost,
+    inv3x3,
+    lam_type,
     lm_loop,
     normal_equations,
     pack,
@@ -88,25 +100,34 @@ _SCHUR_PART_CACHE: dict = {}
 F64_SCHUR_LAMBDA_FLOOR = 1e-5
 
 
-def _sq_min_delta(convergence_delta: float) -> float:
-    """cfg.convergence_delta floored at 1e-8: ‖δ‖² in float32 bottoms out
-    around 1e-9 and the LM would burn its iteration budget after
-    convergence."""
+def _sq_min_delta(convergence_delta: float, dtype=torch.float32) -> float:
+    """cfg.convergence_delta, floored at 1e-8 in float32: ‖δ‖² in float32
+    bottoms out around 1e-9 and the LM would burn its iteration budget
+    after convergence; float64 honours it (the reference's rule)."""
+    if dtype == torch.float64:
+        return float(convergence_delta)
     return max(float(convergence_delta), 1e-8)
 
 
-def _dense_lm(p0, ei, ej, means, infos, free, lam0, iters, sq_min_delta):
-    """The dense arm of the reference's LM program; returns the packed
+def _lm_program(p0, ei, ej, means, infos, free, lam0, iters, sq_min_delta,
+                cg=None):
+    """The reference's LM program on one device, in the type of ``p0``
+    (λ too): each step the dense Cholesky solve or, with ``cg`` =
+    (iterations, tolerance, restarts), ``cg_solve``. Returns the packed
     (8, M) result."""
     M = p0.shape[0]
 
     def step(p, lam):
         Hd, Hij, b = normal_equations(p, ei, ej, means, infos, M)
-        return dense_solve(Hd, Hij, ei, ej, b, lam, free)
+        if cg is None:
+            return dense_solve(Hd, Hij, ei, ej, b, lam, free)
+        cg_iters, cg_tol, restarts = cg
+        return cg_solve(Hd, Hij, ei, ej, b, lam, free, cg_iters, cg_tol,
+                        restarts=restarts)
 
     p, cost0, cost, good, it = lm_loop(
         p0, lambda p: graph_cost(p, ei, ej, means, infos), step,
-        wrap_headings, lam0, iters, sq_min_delta)
+        wrap_headings, lam0, iters, sq_min_delta, lam_type(p0.dtype))
     return pack(p.T, cost0, cost, good, it)
 
 
@@ -243,26 +264,30 @@ def _fused_shapes_fit(num_nodes: int, num_edges: int) -> bool:
 
 
 def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
-           band_spec=lambda: None, mesh=None) -> str:
+           band_spec=lambda: None, mesh=None, dtype=torch.float32) -> str:
     """The solve route of a graph of ``num_nodes`` nodes and ``num_edges``
-    edges on ``device``: "dense", "pcg", "direct", "host_f64",
-    "f64_schur" or "schur"; with a mesh "mesh_dense" or "mesh_cg" (the
-    reference's ``use_dense``, its mesh skipping every other route:
-    ``tpu_slam/solver/pose_graph.py:939``, ``:964``, ``:1008``,
-    ``:1033``). ``band_spec()`` is called only for a graph above
-    ``use_dense_below`` and says whether it bands (None: it does not).
-    The order is the reference's (``:939-945``, ``:964-984``,
+    edges on ``device`` for a solver in ``dtype``: "dense", "pcg", "cg",
+    "direct", "host_f64", "f64_schur" or "schur"; with a mesh "mesh_dense"
+    or "mesh_cg" (the reference's ``use_dense``, its mesh skipping every
+    other route: ``tpu_slam/solver/pose_graph.py:939``, ``:964``,
+    ``:1008``, ``:1033``). ``band_spec()`` is called only for a float32
+    graph above ``use_dense_below`` and says whether it bands (None: it
+    does not). The order is the reference's (``:939-945``, ``:964-984``,
     ``:1008-1038``); small graphs meet its TPU conditions for its fused
-    kernel on ``cuda``, and Schur its partition test (``:1033-1038``)."""
+    kernel on ``cuda``, and Schur its partition test (``:1033-1038``).
+    The direct, host f64, "f64_schur" and fused routes are float32's
+    only, as in the reference; a float64 graph that takes none of the
+    others runs its XLA program's CG ("cg")."""
     if mesh is not None:
         return "mesh_dense" if num_nodes <= cfg.use_dense_below else "mesh_cg"
     small = num_nodes <= cfg.use_dense_below
-    if (not small and cfg.use_direct and not cfg.use_schur
+    f32 = dtype == torch.float32
+    if (f32 and not small and cfg.use_direct and not cfg.use_schur
             and band_spec() is not None):
         return "direct"
-    if cfg.f64_schur_above > 0 and num_nodes >= cfg.f64_schur_above:
+    if f32 and cfg.f64_schur_above > 0 and num_nodes >= cfg.f64_schur_above:
         return "host_f64" if cfg.host_direct_fallback else "f64_schur"
-    if (small and torch.device(device).type == "cuda"
+    if (f32 and small and torch.device(device).type == "cuda"
             and cfg.use_fused_kernel and cfg.cg_restarts <= 1
             and not cfg.use_schur
             and _fused_shapes_fit(num_nodes, num_edges)):
@@ -270,7 +295,7 @@ def _route(num_nodes: int, num_edges: int, device, cfg: SolverConfig,
     if (cfg.use_schur and num_nodes > 2 * cfg.schur_submaps
             and num_nodes >= cfg.use_dense_below):
         return "schur"
-    return "dense" if small else "pcg"
+    return "dense" if small else "pcg" if f32 else "cg"
 
 
 class SolveStats(NamedTuple):
@@ -286,16 +311,21 @@ class PoseGraphSolver:
     (information = covariance⁻¹ computed here), ``compute`` =
     doSPA(max_iterations) plus the corrections harvest. Poses and edges
     are kept on the host in float64; each device solve uploads them to
-    ``device`` in float32, and the host f64 arm solves them where they
-    are.
+    ``device`` in ``dtype`` (float32 or float64), and the host f64 arm
+    solves them where they are.
 
     With a ``mesh`` (``parallel/mesh.Mesh``) the solve runs on the mesh's
     device with the edges sharded over its ranks. Every rank must hold the
     same graph and call ``compute`` alike: each takes its block of the
     edges, and every rank gets the whole result."""
 
-    def __init__(self, cfg: SolverConfig, device=DEFAULT_DEVICE, mesh=None):
+    def __init__(self, cfg: SolverConfig, device=DEFAULT_DEVICE, mesh=None,
+                 dtype=torch.float32):
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"PoseGraphSolver solves in float32 or float64, "
+                             f"not {dtype}")
         self.cfg = cfg
+        self.dtype = dtype
         self.mesh = mesh
         self.device = torch.device(device if mesh is None else mesh.device)
         self._poses: list[np.ndarray] = []
@@ -381,20 +411,22 @@ class PoseGraphSolver:
         iterations is); ``harvest()`` fetches the result."""
         iters = max_iterations or self.cfg.max_iterations
         route = _route(self.num_nodes, self.num_edges, self.device,
-                       self.cfg, self._band_spec, self.mesh)
+                       self.cfg, self._band_spec, self.mesh, self.dtype)
         if route in ("mesh_dense", "mesh_cg"):
             return self._compute_mesh(iters, route == "mesh_dense")
         if route == "dense":
             return self._compute_dense(iters)
+        if route == "cg":
+            return self._compute_cg(iters)
         if route == "pcg":
             return self._compute_pcg(iters)
         if route == "direct":
             return self._compute_direct(iters, self._band_spec())
         if route == "host_f64":
             return self._compute_host_f64(iters)
-        if route == "schur":
+        if route == "schur" and self.dtype == torch.float32:
             return self._compute_schur(iters)
-        return self._compute_f64_schur(iters)
+        return self._compute_f64_schur(iters)  # also "schur" in float64
 
     def _edge_arrays(self):
         """(ei, ej, means, infos) of the edges, built once per edge set."""
@@ -411,24 +443,34 @@ class PoseGraphSolver:
 
     def device_graph(self):
         """(poses, ei, ej, means, infos, free) on the solver's device:
-        float32 poses and edge values, int64 endpoints, and the free mask
-        with node 0 fixed as the gauge (nFixed=1)."""
+        poses and edge values in the solver's type, int64 endpoints, and
+        the free mask with node 0 fixed as the gauge (nFixed=1)."""
         dev = self.device
         ei, ej, means, infos = self._edge_arrays()
-        f32 = dict(dtype=torch.float32, device=dev)
+        typed = dict(dtype=self.dtype, device=dev)
         free = torch.ones(self.num_nodes, dtype=torch.bool, device=dev)
         free[0] = False
-        return (torch.as_tensor(np.asarray(self._poses), **f32),
+        return (torch.as_tensor(np.asarray(self._poses), **typed),
                 torch.as_tensor(ei, device=dev),
                 torch.as_tensor(ej, device=dev),
-                torch.as_tensor(means, **f32), torch.as_tensor(infos, **f32),
-                free)
+                torch.as_tensor(means, **typed),
+                torch.as_tensor(infos, **typed), free)
 
     def _compute_dense(self, iters: int) -> "PendingSolve":
-        packed = _dense_lm(
+        packed = _lm_program(
             *self.device_graph(), self.cfg.initial_lambda, iters,
-            _sq_min_delta(self.cfg.convergence_delta),
-        )
+            _sq_min_delta(self.cfg.convergence_delta, self.dtype))
+        return PendingSolve(self, packed)
+
+    def _compute_cg(self, iters: int) -> "PendingSolve":
+        """The reference's XLA CG LM (a float64 solver's graphs above
+        ``use_dense_below``): ``cg_restarts`` runs of at most
+        ``cg_iterations`` CG steps a step, stopped at ``cg_tolerance``."""
+        cfg = self.cfg
+        packed = _lm_program(
+            *self.device_graph(), cfg.initial_lambda, iters,
+            _sq_min_delta(cfg.convergence_delta, self.dtype),
+            cg=(cfg.cg_iterations, cfg.cg_tolerance, cfg.cg_restarts))
         return PendingSolve(self, packed)
 
     def _compute_mesh(self, iters: int, use_dense: bool) -> "PendingSolve":
@@ -447,7 +489,7 @@ class PoseGraphSolver:
             cfg.initial_lambda, iters=iters, use_dense=use_dense,
             cg_iters=cfg.cg_iterations, cg_tol=cfg.cg_tolerance,
             cg_restarts=max(cfg.cg_restarts, 1),
-            sq_min_delta=_sq_min_delta(cfg.convergence_delta))
+            sq_min_delta=_sq_min_delta(cfg.convergence_delta, self.dtype))
         return PendingSolve(self, out)
 
     def _compute_host_f64(self, iters: int) -> "PendingSolve":
@@ -480,7 +522,7 @@ class PoseGraphSolver:
             _SCHUR_PART_CACHE[key] = part
         return part
 
-    def _schur_lm(self, iters: int, dtype, step_of, sq_min_delta, lam_type):
+    def _schur_lm(self, iters: int, dtype, step_of):
         """The LM with a Schur step, as the reference's LM program runs it:
         the graph padded to its power-of-two node bucket (pad nodes fixed,
         so they are gauge rows), on the solver's device in ``dtype``;
@@ -505,7 +547,8 @@ class PoseGraphSolver:
             torch.as_tensor(poses, **typed),
             lambda p: graph_cost(p, *graph[:4]),
             lambda p, lam: step_of(part, graph, p, lam), wrap_headings,
-            self.cfg.initial_lambda, iters, sq_min_delta, lam_type)
+            self.cfg.initial_lambda, iters,
+            _sq_min_delta(self.cfg.convergence_delta, dtype), lam_type(dtype))
         return pack(p.T, cost0, cost, good, it)
 
     def _compute_schur(self, iters: int) -> "PendingSolve":
@@ -515,13 +558,12 @@ class PoseGraphSolver:
             ei, ej, means, infos, mask, free = graph
             return schur_delta(part, p, ei, ej, means, infos, mask, lam, free)
 
-        return PendingSolve(self, self._schur_lm(
-            iters, torch.float32, step,
-            _sq_min_delta(self.cfg.convergence_delta), np.float32))
+        return PendingSolve(self, self._schur_lm(iters, torch.float32, step))
 
     def _compute_f64_schur(self, iters: int) -> "PendingSolve":
         """The float64 LM on the solver's device whose step is the direct
-        Schur solve (``host_direct_fallback=False``): λ floored at
+        Schur solve ("f64_schur", ``host_direct_fallback=False``; and
+        "schur" of a float64 solver): λ floored at
         ``F64_SCHUR_LAMBDA_FLOOR`` in the step, as the reference's caller
         floors it, and ‖δ‖² stopped at ``convergence_delta`` itself. Its
         packed result is float64."""
@@ -531,9 +573,7 @@ class PoseGraphSolver:
             return mixed_schur_delta(part, p, ei, ej, means, infos, mask,
                                      max(lam, F64_SCHUR_LAMBDA_FLOOR), free)
 
-        return PendingSolve(self, self._schur_lm(
-            iters, torch.float64, step, float(self.cfg.convergence_delta),
-            np.float64))
+        return PendingSolve(self, self._schur_lm(iters, torch.float64, step))
 
     def _band_spec(self):
         """RCM band spec of the graph, None if it does not band."""
