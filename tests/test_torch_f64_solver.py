@@ -271,8 +271,8 @@ def test_plain_pcg_f64_step_matches_reference():
     """The PCG kernel's plain version (``pcg_lm._pcg``) keeps λ in the
     blocks' type: in float64 its step is the reference's cg_solve step."""
     (_p, ei, ej, *_r, free), (Hd, Hij, b), lam = _system()
-    out = pcg_lm._pcg(Hd, Hij, b, ei, ej, free.to(F64), np.float64(lam), 8,
-                      1e-10, restarts=2)
+    out, _steps = pcg_lm._pcg(Hd, Hij, b, ei, ej, free.to(F64),
+                              np.float64(lam), 8, 1e-10, restarts=2)
     with jax.enable_x64(True):
         ref = np.asarray(jpg.cg_solve(
             _j(Hd), _j(Hij), _j(ei), _j(ej), _j(b), jnp.float64(lam),

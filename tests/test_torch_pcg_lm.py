@@ -256,8 +256,9 @@ def test_plain_pcg_matches_cg_solve(ring, restarts):
                                   t["infos"], M)
     fm = t["free"].to(torch.float32)
     lam = 1e-4
-    port = pcg_lm._pcg(Hd, Hij, b, t["ei"], t["ej"], fm, lam, 8, 1e-10,
-                       restarts).numpy()
+    port, _steps = pcg_lm._pcg(Hd, Hij, b, t["ei"], t["ej"], fm, lam, 8,
+                               1e-10, restarts)
+    port = port.numpy()
     ref = np.asarray(pg.cg_solve(
         jnp.asarray(Hd.numpy()), jnp.asarray(Hij.numpy()),
         jnp.asarray(ring["ei"], jnp.int32), jnp.asarray(ring["ej"], jnp.int32),
@@ -266,7 +267,8 @@ def test_plain_pcg_matches_cg_solve(ring, restarts):
     scale = np.abs(ref).max()
     np.testing.assert_allclose(port, ref, rtol=0, atol=2e-5 * scale)
     if restarts == 2:  # the restart moved the solution on
-        one = pcg_lm._pcg(Hd, Hij, b, t["ei"], t["ej"], fm, lam, 8, 1e-10)
+        one, _steps = pcg_lm._pcg(Hd, Hij, b, t["ei"], t["ej"], fm, lam, 8,
+                                  1e-10)
         assert np.abs(port - one.numpy()).max() > 1e-3 * scale
 
 
@@ -289,3 +291,47 @@ def test_entry_point_takes_the_restart_count():
         pcg_lm.fused_lm_solve(*(torch.zeros(1),) * 7, 1e-4, iters=1,
                               cg_iters=1, cg_tol=0.0, sq_min_delta=0.0,
                               cg_restarts=0)
+
+
+class _CountingTorch:
+    """``torch`` for the module under test, counting ``torch.where``."""
+
+    def __init__(self):
+        self.wheres = 0
+
+    def where(self, *args, **kwargs):
+        self.wheres += 1
+        return torch.where(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+@pytest.mark.parametrize("restarts", [1, 2])
+@pytest.mark.parametrize("cg_tol", [0.0, 1e-6])
+def test_plain_version_counts_its_cg_steps(ring, monkeypatch, restarts,
+                                           cg_tol):
+    """Row 4, lane 0 of the plain version holds the CG steps it ran over
+    the solve, as the kernel's does, counted by hand from ``_pcg``'s loop:
+    each CG step takes two guarded divisions (``torch.where``) and each
+    LM iteration's preconditioner one. With no stopping threshold every
+    LM iteration runs ``cg_iters`` steps a restart; with one, fewer; never
+    more than ``iters × cg_iters × restarts``."""
+    counting = _CountingTorch()
+    monkeypatch.setattr(pcg_lm, "torch", counting)
+    t = {k: torch.as_tensor(v) for k, v in ring.items()}
+    iters, cg_iters = 6, 40
+    packed = pcg_lm.pcg_lm_plain(
+        t["p"], t["ei"], t["ej"], t["means"], t["infos"], t["mask"],
+        t["free"], 1e-4, iters=iters, cg_iters=cg_iters, cg_tol=cg_tol,
+        sq_min_delta=1e-8, cg_restarts=restarts)
+    lm_its, steps = int(packed[3, 3]), int(packed[4, 0])
+    assert float(packed[4, 0]) == steps
+    assert (counting.wheres - lm_its) % 2 == 0
+    assert steps == (counting.wheres - lm_its) // 2
+    cap = lm_its * cg_iters * restarts
+    assert 0 < steps <= iters * cg_iters * restarts
+    if cg_tol == 0.0:
+        assert steps == cap
+    else:
+        assert steps < cap

@@ -684,7 +684,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     out[3 * L + m] = s;
     // row 4, lane 0: the PCG iterations run over the whole solve, every
     // restart's (the work this solve's data needed; the plain version
-    // leaves it 0)
+    // counts the same)
     out[4 * L + m] = m == 0 ? (float)cg_total : 0.f;
     for (int u = 5; u < 8; ++u) out[u * L + m] = 0.f;
   }

@@ -374,83 +374,86 @@ def offline_slam(
     timer = timer if timer is not None else StageTimer()
     ocfg = cfg.offline
     dev = scans.device if mesh is None else mesh.device
-    ranges = scans.ranges.cpu().numpy()
-    valid = scans.valid.cpu().numpy()
-    angles = scans.angles.cpu().numpy()
-    T = ranges.shape[0]
-    if T < 2:
-        raise ValueError("offline_slam needs at least two scans")
-    # the laser-frame points: the anchor sweep's store, and the match store
-    # of a mission whose beam directions vary
-    pts = laser_points(ranges, valid, angles, corrected_pts)
+    with timer.stage("prepare"):
+        ranges = scans.ranges.cpu().numpy()
+        valid = scans.valid.cpu().numpy()
+        angles = scans.angles.cpu().numpy()
+        T = ranges.shape[0]
+        if T < 2:
+            raise ValueError("offline_slam needs at least two scans")
+        # the laser-frame points: the anchor sweep's store, and the match
+        # store of a mission whose beam directions vary
+        pts = laser_points(ranges, valid, angles, corrected_pts)
 
-    # mission scan store, uploaded ONCE; every match stage addresses it by
-    # row index. A fixed-mount laser shares one beam-direction row, so the
-    # store holds ranges plus an (N, 2) direction table; a corrected
-    # mission has per-beam directions, so its store holds points.
-    Ts = _bucket(T, lo=16)
-    storev = np.zeros((Ts,) + valid.shape[1:], bool)
-    storev[:T] = valid
-    shared_dirs = corrected_pts is None and (
-        angles.ndim == 1 or bool(np.all(angles == angles[:1])))
-    if shared_dirs:
-        a0 = angles if angles.ndim == 1 else angles[0]
-        store = np.zeros((Ts,) + valid.shape[1:], np.float32)
-        store[:T] = np.where(valid & np.isfinite(ranges), ranges, 0.0)
-        dirs = np.stack([np.cos(a0), np.sin(a0)], axis=-1).astype(np.float32)
-    else:
-        store = np.zeros((Ts,) + pts.shape[1:], np.float32)
-        store[:T] = pts
-        dirs = np.zeros((1, 2), np.float32)  # unused for a points store
-    d_store = torch.as_tensor(store, device=dev)
-    d_storev = torch.as_tensor(storev, device=dev)
-    d_dirs = torch.as_tensor(dirs, device=dev)
+        # mission scan store, uploaded ONCE; every match stage addresses it
+        # by row index. A fixed-mount laser shares one beam-direction row, so
+        # the store holds ranges plus an (N, 2) direction table; a corrected
+        # mission has per-beam directions, so its store holds points.
+        Ts = _bucket(T, lo=16)
+        storev = np.zeros((Ts,) + valid.shape[1:], bool)
+        storev[:T] = valid
+        shared_dirs = corrected_pts is None and (
+            angles.ndim == 1 or bool(np.all(angles == angles[:1])))
+        if shared_dirs:
+            a0 = angles if angles.ndim == 1 else angles[0]
+            store = np.zeros((Ts,) + valid.shape[1:], np.float32)
+            store[:T] = np.where(valid & np.isfinite(ranges), ranges, 0.0)
+            dirs = np.stack([np.cos(a0), np.sin(a0)], axis=-1).astype(
+                np.float32)
+        else:
+            store = np.zeros((Ts,) + pts.shape[1:], np.float32)
+            store[:T] = pts
+            dirs = np.zeros((1, 2), np.float32)  # unused for a points store
+        d_store = torch.as_tensor(store, device=dev)
+        d_storev = torch.as_tensor(storev, device=dev)
+        d_dirs = torch.as_tensor(dirs, device=dev)
 
-    def up(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        def up(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    pmatch = make_packed_indexed_matcher(cfg, mesh)
-    D = 1 if mesh is None else mesh.size
+        pmatch = make_packed_indexed_matcher(cfg, mesh)
+        D = 1 if mesh is None else mesh.size
 
-    def pmatch_np(src_idx, tgt_idx, guesses):
-        """The packed indexed match of (B,) index batches padded to their
-        bucket, a multiple of the mesh's ranks (pads match scan 0 against
-        itself and are dropped): the (B, 14) packed result on the host, in
-        one read."""
-        B = len(src_idx)
-        Bp = -(-_bucket(B) // D) * D
-        si = np.zeros(Bp, np.int64)
-        ti = np.zeros(Bp, np.int64)
-        g = np.zeros((Bp, 3), np.float32)
-        si[:B] = src_idx
-        ti[:B] = tgt_idx
-        g[:B] = guesses
-        out = pmatch(d_store, d_storev, d_dirs, up(si, torch.int64),
-                     up(ti, torch.int64), up(g, torch.float32))
-        return out.double().cpu().numpy()[:B]
+        def pmatch_np(src_idx, tgt_idx, guesses):
+            """The packed indexed match of (B,) index batches padded to
+            their bucket, a multiple of the mesh's ranks (pads match scan 0
+            against itself and are dropped): the (B, 14) packed result on
+            the host, in one read."""
+            B = len(src_idx)
+            Bp = -(-_bucket(B) // D) * D
+            si = np.zeros(Bp, np.int64)
+            ti = np.zeros(Bp, np.int64)
+            g = np.zeros((Bp, 3), np.float32)
+            si[:B] = src_idx
+            ti[:B] = tgt_idx
+            g[:B] = guesses
+            out = pmatch(d_store, d_storev, d_dirs, up(si, torch.int64),
+                         up(ti, torch.int64), up(g, torch.float32))
+            return out.double().cpu().numpy()[:B]
 
-    # 1. consecutive odometry chain + integration, one batched call -------
-    if odom is not None:
-        odom = np.asarray(odom, np.float64)
-        guesses = gnp.compose(gnp.inverse(odom[:-1]), odom[1:]).astype(
-            np.float32
-        )
-    else:
-        guesses = np.zeros((T - 1, 3), np.float32)
-    floor = np.diag(
-        [ocfg.cov_floor_xy**2, ocfg.cov_floor_xy**2, ocfg.cov_floor_theta**2]
-    )
-    Bc = T - 1
-    pose0 = np.zeros(3) if odom is None else np.asarray(odom[0], np.float64)
+        # 1. consecutive odometry chain + integration, one batched call ---
+        if odom is not None:
+            odom = np.asarray(odom, np.float64)
+            guesses = gnp.compose(gnp.inverse(odom[:-1]), odom[1:]).astype(
+                np.float32
+            )
+        else:
+            guesses = np.zeros((T - 1, 3), np.float32)
+        floor = np.diag([ocfg.cov_floor_xy**2, ocfg.cov_floor_xy**2,
+                         ocfg.cov_floor_theta**2])
+        Bc = T - 1
+        pose0 = (np.zeros(3) if odom is None
+                 else np.asarray(odom[0], np.float64))
+        if mesh is None:
+            cmatch = make_chain_matcher(cfg)
+            Bp = _bucket(Bc)
+            si = np.zeros(Bp, np.int64)
+            ti = np.zeros(Bp, np.int64)
+            g = np.zeros((Bp, 3), np.float32)
+            si[:Bc] = np.arange(1, T)
+            ti[:Bc] = np.arange(0, T - 1)
+            g[:Bc] = guesses
     if mesh is None:
-        cmatch = make_chain_matcher(cfg)
-        Bp = _bucket(Bc)
-        si = np.zeros(Bp, np.int64)
-        ti = np.zeros(Bp, np.int64)
-        g = np.zeros((Bp, 3), np.float32)
-        si[:Bc] = np.arange(1, T)
-        ti[:Bc] = np.arange(0, T - 1)
-        g[:Bc] = guesses
         with timer.stage("chain_match"):
             out = cmatch(
                 d_store, d_storev, d_dirs, up(si, torch.int64),
@@ -467,55 +470,77 @@ def offline_slam(
                 torch.as_tensor(pose0, dtype=torch.float32),
                 torch.as_tensor(packed[:, :3], dtype=torch.float32),
             ).double().numpy()
-    chain_rels = packed[:, :3]
-    chain_covs_raw = packed[:, 5:14].reshape(Bc, 3, 3)
-    chain_covs = chain_covs_raw + floor
-    chain_errs = packed[:, 3]
-    # per-step drift variance for the PCM allowance: the RAW GN covariance
-    chain_step_var = float(
-        np.median(np.linalg.eigvalsh(chain_covs_raw[:, :2, :2]).max(axis=-1))
-    )
-    # the mission's own noise floor calibrates the loop alias gate
-    err_gate = min(
-        ocfg.max_mean_error,
-        ocfg.alias_error_mult
-        * float(np.median(chain_errs[np.isfinite(chain_errs)])),
-    )
+    with timer.stage("prepare"):
+        chain_rels = packed[:, :3]
+        chain_covs_raw = packed[:, 5:14].reshape(Bc, 3, 3)
+        chain_covs = chain_covs_raw + floor
+        chain_errs = packed[:, 3]
+        # per-step drift variance for the PCM allowance: the RAW GN
+        # covariance
+        chain_step_var = float(np.median(
+            np.linalg.eigvalsh(chain_covs_raw[:, :2, :2]).max(axis=-1)))
+        # the mission's own noise floor calibrates the loop alias gate
+        err_gate = min(
+            ocfg.max_mean_error,
+            ocfg.alias_error_mult
+            * float(np.median(chain_errs[np.isfinite(chain_errs)])),
+        )
 
-    # 2. multi-stride skip edges: t against t + s, one batched call over
-    # all strides, guesses from the integrated chain. The route length
-    # engages both drift-control stages (skip edges and anchors).
-    route_len = float(np.sum(np.hypot(chain_rels[:, 0], chain_rels[:, 1])))
-    drift_control = route_len >= ocfg.drift_control_min_route
-    skip_edges: list[tuple[int, int, np.ndarray, np.ndarray]] = []
-    skip_pairs = []
-    for s in ocfg.skip_strides if drift_control else ():
-        if 1 < s < T:
-            ii = np.arange(0, T - s, s, dtype=np.int64)
-            skip_pairs.append(np.stack([ii, ii + s], axis=-1))
+        # 2. multi-stride skip edges: t against t + s, one batched call over
+        # all strides, guesses from the integrated chain. The route length
+        # engages both drift-control stages (skip edges and anchors).
+        route_len = float(np.sum(np.hypot(chain_rels[:, 0],
+                                          chain_rels[:, 1])))
+        drift_control = route_len >= ocfg.drift_control_min_route
+        skip_edges: list[tuple[int, int, np.ndarray, np.ndarray]] = []
+        skip_pairs = []
+        for s in ocfg.skip_strides if drift_control else ():
+            if 1 < s < T:
+                ii = np.arange(0, T - s, s, dtype=np.int64)
+                skip_pairs.append(np.stack([ii, ii + s], axis=-1))
+        if skip_pairs:
+            sp = np.concatenate(skip_pairs)
+            si, sj = sp[:, 0], sp[:, 1]
+            sguess = gnp.relative(chain_poses[si], chain_poses[sj]).astype(
+                np.float32)
+        # the loop search's seeds and selector; the anchor sweep's matchers
+        # and stores
+        seeds = _seed_lattice(ocfg)
+        S = seeds.shape[0]
+        if mesh is None:
+            lsel = make_loop_selector(cfg, S)
+            gates = up([ocfg.min_inlier_frac, ocfg.seed_xy, ocfg.seed_theta,
+                        err_gate], torch.float32)
+        anchor_on = (ocfg.use_anchor and drift_control
+                     and T >= ocfg.anchor_min_scans
+                     and T > ocfg.anchor_span + ocfg.anchor_step)
+        if anchor_on:
+            levels = anchor_levels(cfg, T, dev)
+            # the laser-frame points upload once; anchor groups address
+            # them by row index
+            store_pts = torch.as_tensor(pts, device=dev)
+            store_valid = torch.as_tensor(valid, device=dev)
     if skip_pairs:
-        sp = np.concatenate(skip_pairs)
-        si, sj = sp[:, 0], sp[:, 1]
-        sguess = gnp.relative(chain_poses[si], chain_poses[sj]).astype(
-            np.float32)
         with timer.stage("skip_match"):
             spk = pmatch_np(sj, si, sguess)
-        srels = spk[:, :3]
-        scovs = spk[:, 5:14].reshape(-1, 3, 3) + floor
-        serrs = spk[:, 3]
-        sfrac = spk[:, 4] / np.maximum(
-            valid[sj].sum(axis=-1).astype(np.float64), 1.0)
-        sdev = srels - sguess.astype(np.float64)
-        sdev_th = np.arctan2(np.sin(sdev[:, 2]), np.cos(sdev[:, 2]))
-        s_ok = (
-            (sfrac >= ocfg.min_inlier_frac)
-            & np.isfinite(serrs)
-            & (serrs <= err_gate)
-            & (np.linalg.norm(sdev[:, :2], axis=-1) <= ocfg.skip_dev_xy)
-            & (np.abs(sdev_th) <= ocfg.skip_dev_theta)
-        )
-        for k in np.nonzero(s_ok)[0]:
-            skip_edges.append((int(si[k]), int(sj[k]), srels[k], scovs[k]))
+        with timer.stage("prepare"):  # the skip edges' gates
+            srels = spk[:, :3]
+            scovs = spk[:, 5:14].reshape(-1, 3, 3) + floor
+            serrs = spk[:, 3]
+            sfrac = spk[:, 4] / np.maximum(
+                valid[sj].sum(axis=-1).astype(np.float64), 1.0)
+            sdev = srels - sguess.astype(np.float64)
+            sdev_th = np.arctan2(np.sin(sdev[:, 2]), np.cos(sdev[:, 2]))
+            s_ok = (
+                (sfrac >= ocfg.min_inlier_frac)
+                & np.isfinite(serrs)
+                & (serrs <= err_gate)
+                & (np.linalg.norm(sdev[:, :2], axis=-1) <= ocfg.skip_dev_xy)
+                & (np.abs(sdev_th) <= ocfg.skip_dev_theta)
+            )
+            for k in np.nonzero(s_ok)[0]:
+                skip_edges.append((int(si[k]), int(sj[k]), srels[k],
+                                   scovs[k]))
 
     anchor_edges: dict[tuple[int, int],
                        tuple[int, int, np.ndarray, np.ndarray]] = {}
@@ -545,18 +570,14 @@ def offline_slam(
     def _solve():
         nonlocal poses, solver
         with timer.stage("solve"):
-            solver = _build_solver(loops, poses)
+            with timer.stage("graph_build"):
+                solver = _build_solver(loops, poses)
             solver.compute()
             poses = solver.get_poses()
 
-    seeds = _seed_lattice(ocfg)
-    S = seeds.shape[0]
-    if mesh is None:
-        lsel = make_loop_selector(cfg, S)
-        gates = up([ocfg.min_inlier_frac, ocfg.seed_xy, ocfg.seed_theta,
-                    err_gate], torch.float32)
     poses = chain_poses
-    solver = _build_solver([], chain_poses)
+    with timer.stage("graph_build"):
+        solver = _build_solver([], chain_poses)
     candidates_all: list[LoopEdge] = []  # gate-passing edges (pre-PCM)
     loops: list[LoopEdge] = []  # the consistent set fed to the solver
     tried: set[tuple[int, int]] = set()
@@ -642,15 +663,6 @@ def offline_slam(
     # submap of its recent past at the current estimates; an accepted match
     # becomes an edge against the FAR end of the submap
     anchors_tried = 0
-    anchor_on = (ocfg.use_anchor and drift_control
-                 and T >= ocfg.anchor_min_scans
-                 and T > ocfg.anchor_span + ocfg.anchor_step)
-    if anchor_on:
-        levels = anchor_levels(cfg, T, dev)
-        # the laser-frame points upload once; anchor groups address them
-        # by row index
-        store_pts = torch.as_tensor(pts, device=dev)
-        store_valid = torch.as_tensor(valid, device=dev)
 
     def _anchor_sweep() -> bool:
         nonlocal anchors_tried

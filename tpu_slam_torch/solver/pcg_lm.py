@@ -16,7 +16,15 @@ thread-block cluster, the nodes cut into ranges a block each
 where a range's fits and in device memory otherwise; a launch the card
 refuses raises. On ``cpu`` it
 runs ``pcg_lm_plain``, the plain PyTorch version below (the reference's
-XLA CG program, on the normal equations of ``solver/lm.py``).
+XLA CG program, on the normal equations of ``solver/lm.py``). Both write
+the CG steps they ran, summed over the LM iterations and the restarts,
+into row 4, lane 0 of the packed result.
+
+Inside a caller's open stage (``utils/profiling``) the launch's host
+preparation records ``pose_graph.pack`` (the endpoints read back, the
+incidence lists, the cluster geometry) and ``pose_graph.upload`` (the
+argument tensors), so that the caller's ``pose_graph.dispatch`` holds
+the enqueue alone.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from tpu_slam_torch.solver.lm import (
     omega,
     pack,
 )
+from tpu_slam_torch.utils.profiling import span
 
 
 # the kernel's threads per block (pcg_lm.cu) and the fewest nodes a block
@@ -102,9 +111,8 @@ def fused_lm_solve(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
     infos (E, 3, 3), mask (E,) bool, free_mask (M,) bool. Returns
     (poses (M, 3), cost0, cost, iterations, good, packed): ``packed`` is the
     (8, max(M, 4)) array with the poses in rows 0..2 and (cost0, cost, good,
-    iters) in row 3, lanes 0..3. The kernel also puts the number of PCG
-    iterations it ran, every restart's, in row 4, lane 0 (0 from the plain
-    version)."""
+    iters) in row 3, lanes 0..3, and the number of PCG iterations run,
+    every LM iteration's and every restart's, in row 4, lane 0."""
     if cg_restarts < 1:
         raise ValueError(f"cg_restarts must be at least 1, not {cg_restarts}")
     run = pcg_lm_plain if _dispatch.route(poses) == "cpu" else _launch
@@ -126,39 +134,42 @@ def _w6(infos, mask):
 def _launch(poses, ei, ej, means, infos, mask, free_mask, lam0, *, iters,
             cg_iters, cg_tol, sq_min_delta, cg_restarts=1):
     dev = poses.device
-    W6 = _w6(infos, mask)
     M, E = poses.shape[0], ei.shape[0]
     if M < 1 or E < 1:
         raise ValueError("the PCG-LM kernel needs at least one node and edge")
-    for name, t in (("poses", poses), ("means", means), ("W6", W6)):
+    for name, t in (("poses", poses), ("means", means), ("infos", infos)):
         if t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"{name}: expected float32 on {dev}")
     if not (ei.shape == ej.shape == (E,) and means.shape == (E, 3)
             and free_mask.shape == (M,)):
         raise ValueError("edge and node arrays disagree in shape")
-    ei_h = ei.cpu().numpy()
-    ej_h = ej.cpu().numpy()
-    if ei_h.min() < 0 or ej_h.min() < 0 or max(ei_h.max(), ej_h.max()) >= M:
-        raise ValueError("edge endpoint out of range")
-    row_ptr, inc = _incidence(ei_h, ej_h, M)
-    # each incidence beside the edge's other node, and each edge end's
-    # incidence (where the kernel stores the edge's block for that end)
-    other = np.where(inc & 1, ei_h[inc >> 1], ej_h[inc >> 1])
-    pos = np.empty(2 * E, np.int32)
-    pos[inc] = np.arange(2 * E, dtype=np.int32)
-    inc = np.stack([inc, other.astype(np.int32)], axis=1)
-    blocks, logS, qmax, smem = launch_geometry(row_ptr)
-    i32 = dict(dtype=torch.int32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    args = [
-        poses.T.contiguous(), torch.as_tensor(ei_h, **i32),
-        torch.as_tensor(ej_h, **i32), means.T.contiguous(), W6,
-        free_mask.to(**f32).contiguous(), torch.as_tensor(row_ptr, **i32),
-        torch.as_tensor(inc, **i32), torch.as_tensor(pos, **i32),
-    ]
-    L = max(M, 4)  # the stats lanes of the packed result
-    out = torch.empty((8, L), **f32)
-    scratch = torch.empty(scratch_floats(M, E, blocks, 1 << logS), **f32)
+    with span("pose_graph.pack"):
+        ei_h = ei.cpu().numpy()
+        ej_h = ej.cpu().numpy()
+        if (ei_h.min() < 0 or ej_h.min() < 0
+                or max(ei_h.max(), ej_h.max()) >= M):
+            raise ValueError("edge endpoint out of range")
+        row_ptr, inc = _incidence(ei_h, ej_h, M)
+        # each incidence beside the edge's other node, and each edge end's
+        # incidence (where the kernel stores the edge's block for that end)
+        other = np.where(inc & 1, ei_h[inc >> 1], ej_h[inc >> 1])
+        pos = np.empty(2 * E, np.int32)
+        pos[inc] = np.arange(2 * E, dtype=np.int32)
+        inc = np.stack([inc, other.astype(np.int32)], axis=1)
+        blocks, logS, qmax, smem = launch_geometry(row_ptr)
+    with span("pose_graph.upload"):
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        args = [
+            poses.T.contiguous(), torch.as_tensor(ei_h, **i32),
+            torch.as_tensor(ej_h, **i32), means.T.contiguous(),
+            _w6(infos, mask), free_mask.to(**f32).contiguous(),
+            torch.as_tensor(row_ptr, **i32), torch.as_tensor(inc, **i32),
+            torch.as_tensor(pos, **i32),
+        ]
+        L = max(M, 4)  # the stats lanes of the packed result
+        out = torch.empty((8, L), **f32)
+        scratch = torch.empty(scratch_floats(M, E, blocks, 1 << logS), **f32)
     _build.launch(
         "pcg_lm", *(a.data_ptr() for a in args), out.data_ptr(), L,
         scratch.data_ptr(), float(lam0), M, E, iters, cg_iters, float(cg_tol),
@@ -192,10 +203,10 @@ def _inv3_cofactor(D):
 
 def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol, restarts=1):
     """Block-Jacobi PCG for H δ = −b with the damped, gauge-fixed diagonal
-    blocks; (M, 3) delta. ``restarts`` runs of at most ``cg_iters``
-    iterations, each after the first from the true residual of the
-    solution so far and a fresh Krylov space, all against the first
-    run's stopping threshold (``cg_solve(restarts=)``)."""
+    blocks: the (M, 3) delta and the CG iterations run. ``restarts`` runs
+    of at most ``cg_iters`` iterations, each after the first from the true
+    residual of the solution so far and a fresh Krylov space, all against
+    the first run's stopping threshold (``cg_solve(restarts=)``)."""
     eye3 = torch.eye(3, dtype=Hd.dtype, device=Hd.device)
     fm3 = fm[:, None, None]
     D = damped(Hd, lam) * fm3 + (1.0 - fm3) * eye3
@@ -215,6 +226,7 @@ def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol, restarts=1):
     bb = -b * fmc
     stop2 = cg_tol * torch.sum(bb * bb)
     x = torch.zeros_like(bb)
+    steps = 0
     for run in range(restarts):
         r = bb - mv(x) if run else bb  # x = 0 on the first run
         z = precond(r)
@@ -233,7 +245,8 @@ def _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol, restarts=1):
             beta = rz_new / torch.where(rz != 0.0, rz, torch.ones_like(rz))
             p = z + beta * p
             rz = rz_new
-    return x
+            steps += 1
+    return x, steps
 
 
 def pcg_lm_plain(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
@@ -243,11 +256,15 @@ def pcg_lm_plain(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
     M = poses.shape[0]
     om = omega(_w6(infos, mask))  # masked edges carry zero information
     fm = free_mask.to(poses.dtype)
+    cg_total = 0
 
     def step(P, lam):
+        nonlocal cg_total
         Hd, Hij, b = normal_equations(P, ei, ej, means, om, M)
-        return _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol,
-                    cg_restarts)
+        delta, steps = _pcg(Hd, Hij, b, ei, ej, fm, lam, cg_iters, cg_tol,
+                            cg_restarts)
+        cg_total += steps
+        return delta
 
     def wrap(cand):
         return torch.cat([cand[:, :2], norm_angle(cand[:, 2:])], dim=1)
@@ -255,4 +272,6 @@ def pcg_lm_plain(poses, ei, ej, means, infos, mask, free_mask, lam0, *,
     P, cost0, cost, good, it = lm_loop(
         poses, lambda P: graph_cost(P, ei, ej, means, om), step, wrap, lam0,
         iters, sq_min_delta)
-    return pack(P.T, cost0, cost, good, it)
+    packed = pack(P.T, cost0, cost, good, it)
+    packed[4, 0] = cg_total
+    return packed

@@ -47,6 +47,19 @@ The kernel routes launch their CUDA kernel on ``cuda`` and run its plain
 version on ``cpu``; the host arm runs on the host on either device; the
 dense, CG, Schur and mesh routes are plain PyTorch on the solver's device
 (the reference's are XLA programs) and launch no kernel.
+
+Inside a caller's open stage (``utils/profiling``) the solver records its
+phases as spans: ``pose_graph.ingest`` (``add_nodes``,
+``add_constraints``), then once a solve ``pose_graph.route`` (``_route``
+and the band spec, which builds the edge arrays where routing asks for
+it), ``pose_graph.pack`` (host arrays), ``pose_graph.upload`` (host →
+device), ``pose_graph.dispatch`` (the route's entry: the enqueue on the
+CUDA kernel routes, the whole solve elsewhere), ``pose_graph.wait`` (the
+result's one device → host read) and ``pose_graph.harvest`` (unpacking
+and the poses' write-back); the host f64 arm uploads nothing. At harvest
+the counters ``pose_graph.solves``, ``pose_graph.lm_iterations`` (row 3,
+lane 3 of the packed result) and, on the "pcg" route,
+``pose_graph.cg_steps`` (row 4, lane 0).
 """
 
 from __future__ import annotations
@@ -82,6 +95,7 @@ from tpu_slam_torch.solver.pcg_lm import fused_lm_solve
 from tpu_slam_torch.solver.schur import (
     bucket_partition, build_partition, schur_delta,
 )
+from tpu_slam_torch.utils.profiling import count, span
 
 # the fused LM's one-hot cap on (nodes × edges), rounded up to 256 each
 # (tpu_slam/solver/pallas_lm.py MAX_ONEHOT_ELEMS)
@@ -339,11 +353,12 @@ class PoseGraphSolver:
         self._poses.append(np.asarray(pose, np.float64))
 
     def add_nodes(self, node_ids, poses) -> None:
-        poses = np.asarray(poses, np.float64)
-        base = len(self._poses)
-        for k, nid in enumerate(node_ids):
-            self._ids[nid] = base + k
-        self._poses.extend(poses)
+        with span("pose_graph.ingest"):
+            poses = np.asarray(poses, np.float64)
+            base = len(self._poses)
+            for k, nid in enumerate(node_ids):
+                self._ids[nid] = base + k
+            self._poses.extend(poses)
 
     def add_constraint(self, id_from: int, id_to: int, mean,
                        covariance=None, information=None) -> None:
@@ -359,26 +374,28 @@ class PoseGraphSolver:
                         informations=None) -> None:
         """Add edges; information = covariance⁻¹, with a 1e-9·I
         regularization for a degenerate covariance."""
-        means = np.asarray(means, np.float64)
-        if informations is None:
-            c = np.asarray(covariances, np.float64)
-            try:
-                informations = np.linalg.inv(c)
-            except np.linalg.LinAlgError:
-                informations = np.empty_like(c)
-                for k in range(len(c)):
-                    try:
-                        informations[k] = np.linalg.inv(c[k])
-                    except np.linalg.LinAlgError:
-                        informations[k] = np.linalg.inv(c[k] + 1e-9 * np.eye(3))
-        else:
-            informations = np.asarray(informations, np.float64)
-        ids = self._ids
-        self._arrays = None
-        self._edges.extend(
-            (ids[int(a)], ids[int(b)], m, inf)
-            for a, b, m, inf in zip(ids_from, ids_to, means, informations)
-        )
+        with span("pose_graph.ingest"):
+            means = np.asarray(means, np.float64)
+            if informations is None:
+                c = np.asarray(covariances, np.float64)
+                try:
+                    informations = np.linalg.inv(c)
+                except np.linalg.LinAlgError:
+                    informations = np.empty_like(c)
+                    for k in range(len(c)):
+                        try:
+                            informations[k] = np.linalg.inv(c[k])
+                        except np.linalg.LinAlgError:
+                            informations[k] = np.linalg.inv(
+                                c[k] + 1e-9 * np.eye(3))
+            else:
+                informations = np.asarray(informations, np.float64)
+            ids = self._ids
+            self._arrays = None
+            self._edges.extend(
+                (ids[int(a)], ids[int(b)], m, inf)
+                for a, b, m, inf in zip(ids_from, ids_to, means, informations)
+            )
 
     def get_poses(self) -> np.ndarray:
         return np.asarray(self._poses)
@@ -410,8 +427,10 @@ class PoseGraphSolver:
         kernel is enqueued (the streamed CR-LM once its last chunk of LM
         iterations is); ``harvest()`` fetches the result."""
         iters = max_iterations or self.cfg.max_iterations
-        route = _route(self.num_nodes, self.num_edges, self.device,
-                       self.cfg, self._band_spec, self.mesh, self.dtype)
+        with span("pose_graph.route"):
+            route = _route(self.num_nodes, self.num_edges, self.device,
+                           self.cfg, self._band_spec, self.mesh, self.dtype)
+            spec = self._band_spec() if route == "direct" else None
         if route in ("mesh_dense", "mesh_cg"):
             return self._compute_mesh(iters, route == "mesh_dense")
         if route == "dense":
@@ -421,7 +440,7 @@ class PoseGraphSolver:
         if route == "pcg":
             return self._compute_pcg(iters)
         if route == "direct":
-            return self._compute_direct(iters, self._band_spec())
+            return self._compute_direct(iters, spec)
         if route == "host_f64":
             return self._compute_host_f64(iters)
         if route == "schur" and self.dtype == torch.float32:
@@ -446,63 +465,74 @@ class PoseGraphSolver:
         poses and edge values in the solver's type, int64 endpoints, and
         the free mask with node 0 fixed as the gauge (nFixed=1)."""
         dev = self.device
-        ei, ej, means, infos = self._edge_arrays()
-        typed = dict(dtype=self.dtype, device=dev)
-        free = torch.ones(self.num_nodes, dtype=torch.bool, device=dev)
-        free[0] = False
-        return (torch.as_tensor(np.asarray(self._poses), **typed),
-                torch.as_tensor(ei, device=dev),
-                torch.as_tensor(ej, device=dev),
-                torch.as_tensor(means, **typed),
-                torch.as_tensor(infos, **typed), free)
+        with span("pose_graph.pack"):
+            ei, ej, means, infos = self._edge_arrays()
+            poses = np.asarray(self._poses)
+        with span("pose_graph.upload"):
+            typed = dict(dtype=self.dtype, device=dev)
+            free = torch.ones(self.num_nodes, dtype=torch.bool, device=dev)
+            free[0] = False
+            return (torch.as_tensor(poses, **typed),
+                    torch.as_tensor(ei, device=dev),
+                    torch.as_tensor(ej, device=dev),
+                    torch.as_tensor(means, **typed),
+                    torch.as_tensor(infos, **typed), free)
 
     def _compute_dense(self, iters: int) -> "PendingSolve":
-        packed = _lm_program(
-            *self.device_graph(), self.cfg.initial_lambda, iters,
-            _sq_min_delta(self.cfg.convergence_delta, self.dtype))
-        return PendingSolve(self, packed)
+        graph = self.device_graph()
+        with span("pose_graph.dispatch"):
+            packed = _lm_program(
+                *graph, self.cfg.initial_lambda, iters,
+                _sq_min_delta(self.cfg.convergence_delta, self.dtype))
+            return PendingSolve(self, packed)
 
     def _compute_cg(self, iters: int) -> "PendingSolve":
         """The reference's XLA CG LM (a float64 solver's graphs above
         ``use_dense_below``): ``cg_restarts`` runs of at most
         ``cg_iterations`` CG steps a step, stopped at ``cg_tolerance``."""
         cfg = self.cfg
-        packed = _lm_program(
-            *self.device_graph(), cfg.initial_lambda, iters,
-            _sq_min_delta(cfg.convergence_delta, self.dtype),
-            cg=(cfg.cg_iterations, cfg.cg_tolerance, cfg.cg_restarts))
-        return PendingSolve(self, packed)
+        graph = self.device_graph()
+        with span("pose_graph.dispatch"):
+            packed = _lm_program(
+                *graph, cfg.initial_lambda, iters,
+                _sq_min_delta(cfg.convergence_delta, self.dtype),
+                cg=(cfg.cg_iterations, cfg.cg_tolerance, cfg.cg_restarts))
+            return PendingSolve(self, packed)
 
     def _compute_mesh(self, iters: int, use_dense: bool) -> "PendingSolve":
         """The edge-sharded LM: the edges padded (zero information) until
         their blocks tile the mesh."""
         cfg = self.cfg
         poses, ei, ej, means, infos, free = self.device_graph()
-        E = ei.shape[0]
-        pad = -(-max(E, 1) // self.mesh.size) * self.mesh.size - E
-        mask = torch.arange(E + pad, device=self.device) < E
-        ei, ej = (torch.nn.functional.pad(t, (0, pad)) for t in (ei, ej))
-        means = torch.cat([means, means.new_zeros((pad, 3))])
-        infos = torch.cat([infos, infos.new_zeros((pad, 3, 3))])
-        out = mesh_lm(
-            self.mesh, poses, ei, ej, means, infos, mask, free,
-            cfg.initial_lambda, iters=iters, use_dense=use_dense,
-            cg_iters=cfg.cg_iterations, cg_tol=cfg.cg_tolerance,
-            cg_restarts=max(cfg.cg_restarts, 1),
-            sq_min_delta=_sq_min_delta(cfg.convergence_delta, self.dtype))
-        return PendingSolve(self, out)
+        with span("pose_graph.dispatch"):
+            E = ei.shape[0]
+            pad = -(-max(E, 1) // self.mesh.size) * self.mesh.size - E
+            mask = torch.arange(E + pad, device=self.device) < E
+            ei, ej = (torch.nn.functional.pad(t, (0, pad)) for t in (ei, ej))
+            means = torch.cat([means, means.new_zeros((pad, 3))])
+            infos = torch.cat([infos, infos.new_zeros((pad, 3, 3))])
+            out = mesh_lm(
+                self.mesh, poses, ei, ej, means, infos, mask, free,
+                cfg.initial_lambda, iters=iters, use_dense=use_dense,
+                cg_iters=cfg.cg_iterations, cg_tol=cfg.cg_tolerance,
+                cg_restarts=max(cfg.cg_restarts, 1),
+                sq_min_delta=_sq_min_delta(cfg.convergence_delta, self.dtype))
+            return PendingSolve(self, out)
 
     def _compute_host_f64(self, iters: int) -> "PendingSolve":
         """The host f64 arm: its result packed as a float64 (8, M) tensor on
         the CPU, so that the harvest does not round it to float32."""
-        ei, ej, means, infos = self._edge_arrays()
-        free = np.ones(self.num_nodes, bool)
-        free[0] = False  # node 0 is the gauge (nFixed=1)
-        p, cost0, cost, good, it = _host_direct_lm(
-            np.asarray(self._poses), ei, ej, means, infos, free, iters,
-            self.cfg.initial_lambda, float(self.cfg.convergence_delta))
-        return PendingSolve(self, pack(torch.from_numpy(p.T.copy()), cost0,
-                                       cost, good, it))
+        with span("pose_graph.pack"):
+            ei, ej, means, infos = self._edge_arrays()
+            free = np.ones(self.num_nodes, bool)
+            free[0] = False  # node 0 is the gauge (nFixed=1)
+            poses = np.asarray(self._poses)
+        with span("pose_graph.dispatch"):
+            p, cost0, cost, good, it = _host_direct_lm(
+                poses, ei, ej, means, infos, free, iters,
+                self.cfg.initial_lambda, float(self.cfg.convergence_delta))
+            return PendingSolve(self, pack(torch.from_numpy(p.T.copy()),
+                                           cost0, cost, good, it))
 
     def _schur_partition(self, M: int):
         """The bucketed Schur partition of the graph over ``M`` nodes,
@@ -530,26 +560,30 @@ class PoseGraphSolver:
         result."""
         n = self.num_nodes
         M = _bucket(max(n, 2))
-        part = self._schur_partition(M)
-        ei, ej, means, infos = self._edge_arrays()
         dev = self.device
-        poses = np.zeros((M, 3))
-        poses[:n] = np.asarray(self._poses)
-        free = torch.zeros(M, dtype=torch.bool, device=dev)
-        free[1:n] = True  # node 0 is the gauge (nFixed=1)
-        typed = dict(dtype=dtype, device=dev)
-        graph = (torch.as_tensor(ei, device=dev),
-                 torch.as_tensor(ej, device=dev),
-                 torch.as_tensor(means, **typed),
-                 torch.as_tensor(infos, **typed),
-                 torch.ones(len(ei), dtype=torch.bool, device=dev), free)
-        p, cost0, cost, good, it = lm_loop(
-            torch.as_tensor(poses, **typed),
-            lambda p: graph_cost(p, *graph[:4]),
-            lambda p, lam: step_of(part, graph, p, lam), wrap_headings,
-            self.cfg.initial_lambda, iters,
-            _sq_min_delta(self.cfg.convergence_delta, dtype), lam_type(dtype))
-        return pack(p.T, cost0, cost, good, it)
+        with span("pose_graph.pack"):
+            part = self._schur_partition(M)
+            ei, ej, means, infos = self._edge_arrays()
+            poses = np.zeros((M, 3))
+            poses[:n] = np.asarray(self._poses)
+        with span("pose_graph.upload"):
+            free = torch.zeros(M, dtype=torch.bool, device=dev)
+            free[1:n] = True  # node 0 is the gauge (nFixed=1)
+            typed = dict(dtype=dtype, device=dev)
+            p0 = torch.as_tensor(poses, **typed)
+            graph = (torch.as_tensor(ei, device=dev),
+                     torch.as_tensor(ej, device=dev),
+                     torch.as_tensor(means, **typed),
+                     torch.as_tensor(infos, **typed),
+                     torch.ones(len(ei), dtype=torch.bool, device=dev), free)
+        with span("pose_graph.dispatch"):
+            p, cost0, cost, good, it = lm_loop(
+                p0, lambda p: graph_cost(p, *graph[:4]),
+                lambda p, lam: step_of(part, graph, p, lam), wrap_headings,
+                self.cfg.initial_lambda, iters,
+                _sq_min_delta(self.cfg.convergence_delta, dtype),
+                lam_type(dtype))
+            return pack(p.T, cost0, cost, good, it)
 
     def _compute_schur(self, iters: int) -> "PendingSolve":
         """The float32 LM whose step is the Schur solve (``use_schur``)."""
@@ -595,30 +629,35 @@ class PoseGraphSolver:
         spec = spec if spec is not None else self._band_spec()
         if spec is None:
             raise ValueError("the graph does not band under RCM")
-        ei, ej, means, infos = self._edge_arrays()
         dev = self.device
-        E = len(ei)
-        vals = np.zeros((10, E), np.float32)
-        vals[0:3] = means.T
-        vals[3:9] = infos[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T
-        vals[9] = spec.edge_flip
-        rowbase = (spec.edge_bank * spec.W + spec.edge_d - 1) * banded.SLOT_ROWS
-        rows = torch.as_tensor(
-            rowbase[None, :] + np.arange(10)[:, None], device=dev)
-        lanes = torch.as_tensor(spec.edge_lane, dtype=torch.int64,
-                                device=dev).expand(10, E)
-        slots = torch.zeros(
-            (banded.NBANKS * spec.W * banded.SLOT_ROWS, spec.flat_size),
-            dtype=torch.float32, device=dev)
-        slots.index_put_((rows, lanes), torch.as_tensor(vals, device=dev),
-                         accumulate=True)
-        poses = torch.as_tensor(np.asarray(self._poses), dtype=torch.float32,
-                                device=dev)
-        src = torch.as_tensor(spec.pose_src, dtype=torch.int64, device=dev)
-        valid = torch.as_tensor(spec.pose_valid, device=dev)
-        pT8 = torch.zeros((8, spec.flat_size), dtype=torch.float32, device=dev)
-        pT8[0:3] = poses[src].T * valid
-        pT8[3] = torch.as_tensor(spec.free_flat, device=dev)
+        with span("pose_graph.pack"):
+            ei, ej, means, infos = self._edge_arrays()
+            E = len(ei)
+            vals = np.zeros((10, E), np.float32)
+            vals[0:3] = means.T
+            vals[3:9] = infos[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T
+            vals[9] = spec.edge_flip
+            rowbase = ((spec.edge_bank * spec.W + spec.edge_d - 1)
+                       * banded.SLOT_ROWS)
+            rows = rowbase[None, :] + np.arange(10)[:, None]
+            poses = np.asarray(self._poses)
+        with span("pose_graph.upload"):
+            rows = torch.as_tensor(rows, device=dev)
+            lanes = torch.as_tensor(spec.edge_lane, dtype=torch.int64,
+                                    device=dev).expand(10, E)
+            slots = torch.zeros(
+                (banded.NBANKS * spec.W * banded.SLOT_ROWS, spec.flat_size),
+                dtype=torch.float32, device=dev)
+            slots.index_put_((rows, lanes), torch.as_tensor(vals, device=dev),
+                             accumulate=True)
+            poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+            src = torch.as_tensor(spec.pose_src, dtype=torch.int64,
+                                  device=dev)
+            valid = torch.as_tensor(spec.pose_valid, device=dev)
+            pT8 = torch.zeros((8, spec.flat_size), dtype=torch.float32,
+                              device=dev)
+            pT8[0:3] = poses[src].T * valid
+            pT8[3] = torch.as_tensor(spec.free_flat, device=dev)
         return spec, pT8, slots
 
     def _compute_direct(self, iters: int, spec) -> "PendingSolve":
@@ -627,39 +666,48 @@ class PoseGraphSolver:
         both can be timed on the same graphs)."""
         spec, pT8, slots = self.direct_inputs(spec)
         solve = fused_cr_lm if spec.K <= K_MAX else streamed_cr_lm
-        out = solve(
-            pT8, slots, self.cfg.initial_lambda, W=spec.W, K=spec.K,
-            iters=iters,
-            sq_min_delta=_sq_min_delta(self.cfg.convergence_delta))
-        return PendingSolve(self, out, lanes=spec.flat_of_orig)
+        with span("pose_graph.dispatch"):
+            out = solve(
+                pT8, slots, self.cfg.initial_lambda, W=spec.W, K=spec.K,
+                iters=iters,
+                sq_min_delta=_sq_min_delta(self.cfg.convergence_delta))
+            return PendingSolve(self, out, lanes=spec.flat_of_orig)
 
     def _compute_pcg(self, iters: int) -> "PendingSolve":
+        """The PCG-LM: on ``cuda`` the kernel's own host preparation opens
+        ``pose_graph.pack`` and ``pose_graph.upload`` inside
+        ``pose_graph.dispatch``, which then holds the enqueue alone."""
         cfg = self.cfg
         poses, ei, ej, means, infos, free = self.device_graph()
-        out = fused_lm_solve(
-            poses, ei, ej, means, infos, torch.ones_like(ei, dtype=torch.bool),
-            free, cfg.initial_lambda, iters=iters, cg_iters=cfg.cg_iterations,
-            cg_tol=cfg.cg_tolerance,
-            sq_min_delta=_sq_min_delta(cfg.convergence_delta),
-            cg_restarts=max(cfg.cg_restarts, 1),
-        )
-        return PendingSolve(self, out[5])
+        with span("pose_graph.dispatch"):
+            out = fused_lm_solve(
+                poses, ei, ej, means, infos,
+                torch.ones_like(ei, dtype=torch.bool), free,
+                cfg.initial_lambda, iters=iters, cg_iters=cfg.cg_iterations,
+                cg_tol=cfg.cg_tolerance,
+                sq_min_delta=_sq_min_delta(cfg.convergence_delta),
+                cg_restarts=max(cfg.cg_restarts, 1),
+            )
+            return PendingSolve(self, out[5], cg_steps=True)
 
 
 class PendingSolve:
     """Handle to a dispatched solve. Its packed (8, L) result holds the
     poses in rows 0..2, node k at lane ``lanes[k]`` (lane k when None), and
-    (cost0, cost, good, iters) in row 3; ``harvest`` fetches it in ONE
-    device→host copy and writes the poses back, node 0 (the gauge)
-    excepted. A mesh solve has run to its end on the host's schedule when
-    it returns, so ``ready()`` is True on every rank alike (an event's
-    state could differ between ranks and part their control flow)."""
+    (cost0, cost, good, iters) in row 3; with ``cg_steps`` (the PCG-LM)
+    the CG steps run in row 4, lane 0. ``harvest`` fetches it in ONE
+    device→host copy, writes the poses back, node 0 (the gauge) excepted,
+    and adds the solve's counters to the open timer. A mesh solve has run
+    to its end on the host's schedule when it returns, so ``ready()`` is
+    True on every rank alike (an event's state could differ between ranks
+    and part their control flow)."""
 
     def __init__(self, solver: PoseGraphSolver, packed: torch.Tensor,
-                 lanes: np.ndarray | None = None):
+                 lanes: np.ndarray | None = None, cg_steps: bool = False):
         self._solver = solver
         self._packed = packed
         self._lanes = lanes
+        self._cg_steps = cg_steps
         self.n_nodes = solver.num_nodes  # the nodes in this solve
         self._stats: SolveStats | None = None
         self._event = None
@@ -675,11 +723,20 @@ class PendingSolve:
     def harvest(self) -> SolveStats:
         if self._stats is not None:
             return self._stats
-        raw = self._packed.double().cpu().numpy()
-        out = raw[0:3].T if self._lanes is None else raw[0:3, self._lanes].T
-        for k in range(1, self.n_nodes):
-            self._solver._poses[k] = out[k]
-        # SolveStats reports the GOOD iterations, like doSPA's return value
-        self._stats = SolveStats(
-            int(raw[3, 2]), float(raw[3, 0]), float(raw[3, 1]))
+        with span("pose_graph.wait"):
+            raw = self._packed.double().cpu()
+        with span("pose_graph.harvest"):
+            raw = raw.numpy()
+            out = (raw[0:3].T if self._lanes is None
+                   else raw[0:3, self._lanes].T)
+            for k in range(1, self.n_nodes):
+                self._solver._poses[k] = out[k]
+            # SolveStats reports the GOOD iterations, like doSPA's return
+            # value
+            self._stats = SolveStats(
+                int(raw[3, 2]), float(raw[3, 0]), float(raw[3, 1]))
+        count("pose_graph.solves")
+        count("pose_graph.lm_iterations", int(raw[3, 3]))
+        if self._cg_steps:
+            count("pose_graph.cg_steps", int(raw[4, 0]))
         return self._stats
