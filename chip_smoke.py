@@ -6,7 +6,7 @@ the GPU.
 Needs one CUDA card, ``nvcc`` and the repository's sources; imports no JAX
 and nothing of the JAX package. Phases, each printing its own line(s):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the seven kernels from ``tpu_slam_torch/csrc``, one nvcc per
+  2. build: the eight kernels from ``tpu_slam_torch/csrc``, one nvcc per
      source, all started together;
   3. the PL-ICP kernel against its plain version on 512 scan pairs of 360
      beams (the bench PL-ICP batch): its device time per launch from a
@@ -39,12 +39,23 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      ``PoseGraphSolver.compute``. Every match must run the PL-ICP kernel
      and every solve an LM kernel (the mission's loop-closed graphs do not
      band, so they take the PCG-LM; the bench graph takes the CR-LM), and
-     the mission ATE must stay ≤ 5 mm. The run records the mission's chain
-     batch and its first loop-selector batch;
+     the mission ATE must stay ≤ 5 mm, and each loop-candidate sweep
+     (``candidates`` stage) must launch the loop-sweep kernel once. The
+     run records the mission's chain batch, its first loop-selector batch
+     and every sweep's inputs and picks;
   6. the PL-ICP kernel against its plain version on those two batches:
      chain poses and trajectory within tolerance, the same accept flags
      and selected rows from the loop selector; the kernel alone on each
      batch timed as in 3, with its own bound, and both matchers' times;
+ 6b. the loop-sweep kernel against its plain version, on the card and on
+     the CPU, on every sweep the counted mission made (round 1, and round
+     2 with the pairs round 1 tried): the same picks and live cells from
+     all three, and the picks the mission took; then on the first and
+     the last sweep the kernel's device time per sweep by launch (cells,
+     select; profiler), the wall of a sweep with the poses' upload and
+     the read-back (as the ``candidates`` stage takes it) for the kernel
+     and for the plain version on the card, the plain version's wall on
+     the CPU, and the bound;
   7. the PCG-LM kernel against its plain version on the mission's
      loop-closed graph, with both times and the PCG iterations run (the
      dependent steps) and time per step; then at the ends of its route:
@@ -146,7 +157,9 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      scans/s, the stage timer, the skip edges, anchors and loops
      accepted, the solves' route, the chain and final ATE (final ≤ 0.01 m
      and below the chain's; ≥ 1 skip edge, ≥ 1 anchor, ≥ 4 loops; the
-     PL-ICP and correlative kernels launched); then the correlative
+     PL-ICP and correlative kernels launched, the loop-sweep kernel once
+     a sweep); the loop-sweep kernel against its plain version on every
+     sweep of the run, as in 6b, untimed; then the correlative
      kernel int32 for int32 against its plain version on one anchor
      group of each level, coarse and fine pass, at the final poses;
  14c. the online outdoor run, with the launch counters zeroed first:
@@ -216,7 +229,7 @@ and nothing of the JAX package. Phases, each printing its own line(s):
      map and the Karto and Hector checkpoints read back (the reloaded
      Hector mapper steps to the original's pose), and one ``offline
      --bag`` run under ``utils/profiling.device_trace`` whose Chrome trace
-     names the PL-ICP and PCG-LM kernels;
+     names the PL-ICP, PCG-LM and loop-sweep kernels;
  19c. the multi-device layer (``phase_mesh``), ranks spawned from this
      script (``torch.multiprocessing``, spawn): (a) one rank over NCCL,
      (b) two ranks sharing the card over gloo (NCCL refuses two ranks on
@@ -261,9 +274,9 @@ and nothing of the JAX package. Phases, each printing its own line(s):
  23. ``offline_slam(corrected_pts=...)`` on the 80-scan undistortion
      recipe: every match a PL-ICP launch, the corrected chain's ATE under
      the raw one's;
- 24. one JSON line with every kernel (its launches, the PL-ICP and
-     correlative kernels' counting the outdoor mission's and every mesh
-     rank's too, every kernel's the examples', the
+ 24. one JSON line with every kernel (its launches, the PL-ICP,
+     correlative and loop-sweep kernels' counting the outdoor mission's
+     and every mesh rank's too, every kernel's the examples', the
      correlative and LM kernels' the online outdoor run's, every kernel's
      the command line's runs, the PCG-LM's the restarted ring's, its error
      against its plain version, both times, and its bound: the larger of
@@ -326,6 +339,9 @@ from tpu_slam_torch.ops.cuda import correlative_response as corr_response
 from tpu_slam_torch.ops.cuda.correlative_response import responses_sliced
 from tpu_slam_torch.ops.cuda.hector_fused import (
     BARRIERS_PER_STEP, hector_geometry, hector_match_fused,
+)
+from tpu_slam_torch.ops.cuda.loop_sweep import (
+    loop_sweep_cuda, loop_sweep_plain,
 )
 from tpu_slam_torch.ops.cuda.nn import nearest_neighbor_cuda, nn_geometry
 from tpu_slam_torch.ops.cuda.plicp_fused import (
@@ -1065,6 +1081,27 @@ def bench_mission(dev):
 
 
 @contextlib.contextmanager
+def recording_sweeps():
+    """Record every loop-candidate sweep of the runs inside: the poses,
+    settings and tried pairs it took, and its picks, passing every call
+    through unchanged."""
+    sweeps = []
+    find0 = offline._loop_candidates
+
+    def find(poses, ocfg, tried):
+        before = set(tried)
+        got = find0(poses, ocfg, tried)
+        sweeps.append((poses.clone(), ocfg, before, got))
+        return got
+
+    offline._loop_candidates = find
+    try:
+        yield sweeps
+    finally:
+        offline._loop_candidates = find0
+
+
+@contextlib.contextmanager
 def recording_batches():
     """Record the arguments of the mission's first chain-match call and of
     its first loop-selector call, passing every call through unchanged."""
@@ -1107,8 +1144,9 @@ def phase_main_path(dev):
     T = len(gt)
     timer = StageTimer()
     _dispatch.reset_launches()
-    with recording_batches() as batches:
+    with recording_batches() as batches, recording_sweeps() as sweeps:
         res = offline_slam(scans, cfg, odom=odom, timer=timer)
+    batches["sweeps"] = sweeps
     mission_solves = timer.counts["solve"]
     poses, edges = bench_graph()
     stats = solver_from_numpy(SolverConfig(), poses, edges, dev).compute()
@@ -1128,6 +1166,8 @@ def phase_main_path(dev):
         raise AssertionError("the mission ran no PL-ICP kernel launch")
     if mission_solves == 0 or launches["pcg_lm"] != mission_solves:
         raise AssertionError("not every mission solve ran the PCG-LM kernel")
+    if launches["loop_sweep"] != timer.counts["candidates"]:
+        raise AssertionError("not every loop-candidate sweep ran its kernel")
     if launches["cr_lm"] != 1 or not np.isfinite(stats.final_cost):
         raise AssertionError("the bench graph solve did not run the CR-LM "
                              "kernel")
@@ -1264,6 +1304,95 @@ def phase_mission_batches(cfg, T: int, batches) -> None:
         f"{float(pose_gap(kp.pose, pp.pose).max()):.3e} inliers equal "
         f"{inl_eq:.4f}; {witness}; {timing}; plain {plain_ms:.3f} ms",
         flush=True)
+
+
+def sweep_bound(T: int, min_gap: int, n_tried: int, cap: int) -> dict:
+    """The loop sweep's least time: the poses read once (x and y, 8 bytes
+    a scan), the tried pairs read and the picks written once (8 bytes a
+    pair); 3 float32 operations a scan (its squared norm) and 6 a pair
+    with j - i >= min_gap (a product, an fma, two adds, the subtraction
+    and the compare with the radius)."""
+    m = max(min_gap, 1)
+    pairs = (T - m) * (T - m + 1) // 2 if T > m else 0
+    return bound(8.0 * (T + n_tried + cap), 3.0 * T + 6.0 * pairs)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median wall milliseconds of a call of ``fn`` that ends in a read on
+    the host, after one warm-up."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)) * 1e3
+
+
+def phase_loop_sweep(label: str, sweeps, reps: int = 0) -> dict | None:
+    """The loop-sweep kernel against its plain version, on the card and on
+    the CPU, on the sweeps a run recorded (``recording_sweeps``): the
+    same picks and live cells from all three, and the picks the run
+    took. With ``reps``, on the first sweep and on the last: the kernel's
+    device time per sweep by launch (profiler), the wall of a sweep with
+    the poses' upload and the read-back (median of ``reps``) for the
+    kernel and for the plain version on the card, the plain version's
+    wall on the CPU, and the bound. Returns the numbers of the kernels
+    line, from the last sweep, or None untimed."""
+    if not sweeps:
+        raise AssertionError(f"{label}: the run made no loop-candidate sweep")
+    live = []
+    for k, (poses, ocfg, tried, took) in enumerate(sweeps):
+        args = (ocfg.loop_radius, ocfg.loop_min_gap, ocfg.loop_nms_gap,
+                ocfg.max_candidates, tried)
+        kern = loop_sweep_cuda(poses, *args)
+        card = loop_sweep_plain(poses, *args)
+        host = loop_sweep_plain(poses.cpu(), *args)
+        live.append(kern[1])
+        if not (kern == card == host and kern[0] == took):
+            raise AssertionError(
+                f"{label} {k}: the kernel (picks {len(kern[0])}, live cells "
+                f"{kern[1]}), the plain version on the card ({len(card[0])}, "
+                f"{card[1]}) and on the CPU ({len(host[0])}, {host[1]}) and "
+                f"the run ({len(took)} picks) disagree")
+    print(f"{label}: {len(sweeps)} sweeps at T={sweeps[0][0].shape[0]}: "
+          f"kernel, plain version on the card and on the CPU equal, and "
+          f"equal to the run's picks; picks {[len(s[3]) for s in sweeps]} "
+          f"live cells {live} tried {[len(s[2]) for s in sweeps]}",
+          flush=True)
+    if not reps:
+        return None
+    out = None
+    for k in sorted({0, len(sweeps) - 1}):
+        poses, ocfg, tried, _took = sweeps[k]
+        args = (ocfg.loop_radius, ocfg.loop_min_gap, ocfg.loop_nms_gap,
+                ocfg.max_candidates, tried)
+        T, dev = poses.shape[0], poses.device
+        host = poses.cpu()
+        _w, _b, per = device_profile(
+            lambda: [loop_sweep_cuda(poses, *args) for _ in range(reps)],
+            stages=True)
+        dev_us = {st: per[f"loop_sweep_{st}"][1] / reps
+                  for st in ("cells", "select")}
+        if any(per[f"loop_sweep_{st}"][0] != reps for st in dev_us):
+            raise AssertionError(f"{label} {k}: not one launch of each "
+                                 "kernel a sweep")
+        kern_ms = wall_ms(lambda: loop_sweep_cuda(host.to(dev), *args), reps)
+        card_ms = wall_ms(lambda: loop_sweep_plain(host.to(dev), *args), reps)
+        host_ms = wall_ms(lambda: loop_sweep_plain(host, *args), reps)
+        work = sweep_bound(T, ocfg.loop_min_gap, len(tried),
+                           ocfg.max_candidates)
+        print(f"{label} {k} (tried {len(tried)}): kernel device "
+              f"{dev_us['cells']:.2f} (cells) + {dev_us['select']:.2f} "
+              f"(select) us a sweep (profiler, {reps} sweeps); wall with "
+              f"upload and read-back: kernel {kern_ms:.4f} ms, plain "
+              f"version on the card {card_ms:.3f} ms; plain version on the "
+              f"CPU {host_ms:.3f} ms (median of {reps}); bound "
+              f"{work['bound_ms']:.6f} ms ({work['bound_by']})", flush=True)
+        out = {"max_abs_err": 0.0, "ms": sum(dev_us.values()) / 1e3,
+               "wall_ms": kern_ms, "plain_ms": card_ms,
+               "plain_cpu_ms": host_ms, **work}
+    return out
 
 
 def pcg_compare(label: str, dev, args, kw, reps: int = 3) -> dict:
@@ -2164,7 +2293,8 @@ def phase_outdoor_main(dev) -> dict:
     cfg, scans, odom, gt = outdoor_recipe(dev)
     T = len(gt)
     _dispatch.reset_launches()
-    res, timer, wall = outdoor_run(cfg, scans, odom)
+    with recording_sweeps() as sweeps:
+        res, timer, wall = outdoor_run(cfg, scans, odom)
     launches = dict(_dispatch.LAUNCHES)
     skips = res.skip_edges
     route = _route(res.solver.num_nodes, res.solver.num_edges, dev,
@@ -2197,6 +2327,10 @@ def phase_outdoor_main(dev) -> dict:
     if not (launches["plicp_fused"] and launches["correlative_response"]):
         raise AssertionError("the outdoor run did not launch the PL-ICP and "
                              "correlative kernels")
+    if launches["loop_sweep"] != timer.counts["candidates"]:
+        raise AssertionError("not every outdoor loop-candidate sweep ran its "
+                             "kernel")
+    phase_loop_sweep("outdoor sweeps", sweeps)
     for label, args in anchor_passes(cfg, scans, res.poses):
         response_compare(label, *args, reps=(20, 1))
     return launches
@@ -3863,7 +3997,7 @@ def cli_counts(model: str, out):
 
 CLI_KERNELS = {"karto": {"correlative_response", "nn"}, "odometry": {"nn"},
                "hector": {"hector_fused"},
-               "offline": {"plicp_fused", "pcg_lm"},
+               "offline": {"plicp_fused", "pcg_lm", "loop_sweep"},
                "gmapping": set(), "features": set()}
 
 
@@ -3884,8 +4018,8 @@ def phase_bag_cli(dev) -> dict:
     and scans/s. The map and checkpoint files are read back, the Hector
     state goes through ``save_hector`` / ``load_hector`` (the loaded and
     the original mapper step one more scan to the same pose), and one
-    ``offline --bag`` run under ``device_trace`` must name the PL-ICP and
-    PCG-LM kernels in its Chrome trace. Returns the runs' launches."""
+    ``offline --bag`` run under ``device_trace`` must name the PL-ICP,
+    PCG-LM and loop-sweep kernels in its Chrome trace. Returns the runs' launches."""
     SCRATCH.mkdir(parents=True, exist_ok=True)
     kcfg, kscans, _kodom, kgt = karto_recipe("cpu")
     hcfg, hscans, hgt = hector_seq(HECTOR_SCANS, "cpu")
@@ -3994,14 +4128,14 @@ def phase_bag_cli(dev) -> dict:
     kernels = [e.get("name", "") for e in
                json.loads(trace.read_text())["traceEvents"]
                if e.get("cat") == "kernel"]
-    named = {k: sum(k in n for n in kernels) for k in ("plicp_fused",
-                                                       "pcg_lm")}
+    named = {k: sum(k in n for n in kernels)
+             for k in ("plicp_fused", "pcg_lm", "loop_sweep")}
     print(f"cli offline under device_trace: {trace_s:.2f} s with the trace's "
           f"export, {trace.stat().st_size} bytes, {len(kernels)} kernel "
           f"events; by name {named}", flush=True)
     if not all(named.values()):
-        raise AssertionError("the Chrome trace does not name the PL-ICP and "
-                             "PCG-LM kernels")
+        raise AssertionError("the Chrome trace does not name the PL-ICP, "
+                             "PCG-LM and loop-sweep kernels")
     return total
 
 
@@ -4468,6 +4602,7 @@ def main() -> None:
     clock("large pose graphs, host f64 arm, corrected mission")
     cfg, scans, odom, gt, res, launches, batches = phase_main_path(dev)
     phase_mission_batches(cfg, res.poses.shape[0], batches)
+    sweep = phase_loop_sweep("mission sweeps", batches["sweeps"], reps=50)
     pcg, pcg_base = phase_pcg(dev, res)
     phase_pcg_edges(dev)
     restart_launches = phase_pcg_restarts(dev, res, pcg_base)
@@ -4559,6 +4694,12 @@ def main() -> None:
          "replaces": "tpu_slam/ops/pallas/nn.py:50",
          "launches": nn_launches + cli_launches["nn"] + examples["nn"],
          **nn},
+        {"name": "loop_sweep", "route": "cuda",
+         "source": "tpu_slam_torch/csrc/loop_sweep.cu",
+         "replaces": "tpu_slam/models/offline.py:101",
+         "launches": launches["loop_sweep"]
+         + outdoor_launches["loop_sweep"] + cli_launches["loop_sweep"]
+         + mesh_launches["loop_sweep"] + examples["loop_sweep"], **sweep},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -86,6 +86,12 @@ SIGNATURES = {
         # smem, targets a chunk, stream
         [_VP] * 5 + [_I] * 8 + [_VP],
     ),
+    "loop_sweep": (
+        "loop_sweep_launch",
+        # poses, row stride, T, tried, tried pairs, cells, scratch, out, g,
+        # gap, min_gap, r2, cap, stream
+        [_VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -28,7 +28,7 @@ DEFAULT_DEVICE = "cuda"
 
 LAUNCHES: dict[str, int] = {
     "plicp_fused": 0, "cr_lm": 0, "cr_stream": 0, "pcg_lm": 0,
-    "hector_fused": 0, "correlative_response": 0, "nn": 0,
+    "hector_fused": 0, "correlative_response": 0, "nn": 0, "loop_sweep": 0,
 }
 
 

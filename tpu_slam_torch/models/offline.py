@@ -8,7 +8,8 @@ calls — port of ``tpu_slam/models/offline.py::offline_slam``.
      against t + s for the strides ``skip_strides``, in ONE batched PL-ICP
      call, gated on inliers, the error gate and the deviation from the
      chain;
-  3. loop candidates come from a pose-proximity sweep on the host;
+  3. loop candidates come from a pose-proximity sweep on the device
+     (``ops/cuda/loop_sweep``: one read of the picked pairs);
   4. candidates are matched by multi-start batched PL-ICP, with best-seed
      selection and gating on the device (``make_loop_selector``);
   5. pairwise-consistent loops plus the chain (and the skip and anchor
@@ -50,12 +51,13 @@ from tpu_slam_torch.data.scan import Scan
 from tpu_slam_torch.ops.correlative import (
     CorrelativeMatcher, CorrelativeParams, to_host,
 )
+from tpu_slam_torch.ops.cuda.loop_sweep import loop_sweep
 from tpu_slam_torch.ops.undistort import undistort_scan
 from tpu_slam_torch.parallel.distributed_step import (
     make_chain_matcher, make_loop_selector, make_packed_indexed_matcher,
 )
 from tpu_slam_torch.solver.pose_graph import PoseGraphSolver
-from tpu_slam_torch.utils.profiling import StageTimer
+from tpu_slam_torch.utils.profiling import StageTimer, count
 
 
 @dataclasses.dataclass
@@ -101,51 +103,19 @@ def _seed_lattice(ocfg) -> np.ndarray:
 
 
 def _loop_candidates(
-    poses: np.ndarray, ocfg, tried: set
+    poses, ocfg, tried: set
 ) -> list[tuple[int, int]]:
     """Pose-proximity candidate pairs (i < j), thinned by non-maximum
     suppression along both scan indices (the analogue of Karto's
-    FindPossibleLoopClosure sweep, done once over the whole mission)."""
-    T = poses.shape[0]
-    # blockwise sweep bounds the T x T distance matrix's memory
-    blk = 2048
-    xy = poses[:, :2].astype(np.float32)
-    n2 = np.sum(xy * xy, axis=1)
-    r2 = np.float32(ocfg.loop_radius) ** 2
-    ii_l, jj_l, dd_l = [], [], []
-    for r0 in range(0, T, blk):
-        r1 = min(r0 + blk, T)
-        d2 = n2[:, None] + n2[None, r0:r1] - 2.0 * (xy @ xy[r0:r1].T)
-        gap_ok = (
-            np.arange(r0, r1)[None, :] - np.arange(T)[:, None]
-            >= ocfg.loop_min_gap
-        )
-        i_b, j_b = np.nonzero((d2 <= r2) & gap_ok)
-        ii_l.append(i_b)
-        jj_l.append(j_b + r0)
-        dd_l.append(d2[i_b, j_b])
-    ii = np.concatenate(ii_l)
-    jj = np.concatenate(jj_l)
-    order = np.argsort(np.concatenate(dd_l))
-    # only the closest pair of each (gap x gap) index cell can survive the
-    # exact NMS below
-    g = max(ocfg.loop_nms_gap, 1)
-    cells = (ii // g).astype(np.int64) * (T // g + 2) + jj // g
-    _, first = np.unique(cells[order], return_index=True)
-    order = order[np.sort(first)]
-    picked: list[tuple[int, int]] = []
-    for k in order:
-        i, j = int(ii[k]), int(jj[k])
-        if (i, j) in tried:
-            continue
-        if any(
-            abs(i - a) < ocfg.loop_nms_gap and abs(j - b) < ocfg.loop_nms_gap
-            for a, b in picked
-        ):
-            continue
-        picked.append((i, j))
-        if len(picked) >= ocfg.max_candidates:
-            break
+    FindPossibleLoopClosure sweep, done once over the whole mission):
+    ``ops/cuda/loop_sweep``, on the card for a CUDA tensor of poses, in
+    its plain version for a CPU tensor or a numpy array. Counts the live
+    cells the sweep walked (``offline.sweep_cells``)."""
+    if not isinstance(poses, torch.Tensor):
+        poses = torch.as_tensor(np.asarray(poses)[:, :2], dtype=torch.float32)
+    picked, live = loop_sweep(poses, ocfg.loop_radius, ocfg.loop_min_gap,
+                              ocfg.loop_nms_gap, ocfg.max_candidates, tried)
+    count("offline.sweep_cells", live)
     return picked
 
 
@@ -593,7 +563,7 @@ def offline_slam(
     def _loop_round(rnd: int) -> bool:
         nonlocal loops
         with timer.stage("candidates"):
-            cands = _loop_candidates(poses, ocfg, tried)
+            cands = _loop_candidates(up(poses, torch.float32), ocfg, tried)
         tried.update(cands)
         if not cands:
             return False
